@@ -1,0 +1,364 @@
+"""PairHMM public API — counterpart of the PairHMM part of ``gkl_tpu/api.py``.
+
+Mirrors the reference's ``IntelPairHmm`` (``pairhmm/IntelPairHmm.java:41-167``):
+the likelihood batch is the read x haplotype cross product in read-major
+order (``pairhmm/JavaData.h:84-106``), computed in float32 with the lanes
+whose result is deep or untrustworthy recomputed in exact float64
+(``pairhmm/IntelPairHmm.cc:125-181``).
+
+Every float32 shape bucket goes to one launch of the scaled kernel
+(``ops/pairhmm_cuda.py``) on ``PairHMM.device``: CUDA by default, the plain
+PyTorch twin when the caller asks for ``device="cpu"``.  The f64 rescue and
+the double-precision mode run on the host's native oracle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import batch as batch_mod
+from . import profiling, utils
+from .context import MIN_ACCEPTED
+from .ops import pairhmm as pairhmm_ops
+from .ops import pairhmm_cuda, pairhmm_ref
+
+
+def _as_u8(x) -> np.ndarray:
+    if isinstance(x, (bytes, bytearray, str)):
+        if isinstance(x, str):
+            x = x.encode("ascii")
+        return np.frombuffer(bytes(x), dtype=np.uint8)
+    # no copy when already uint8 (the pipeline shares constant GOP rows)
+    return np.asarray(x).astype(np.uint8, copy=False)
+
+
+@dataclasses.dataclass
+class ReadData:
+    """Equivalent of GATK's ReadDataHolder (pairhmm/JavaData.h:55-60)."""
+
+    read_bases: np.ndarray
+    read_quals: np.ndarray
+    insertion_gop: np.ndarray
+    deletion_gop: np.ndarray
+    overall_gcp: np.ndarray
+
+    def __post_init__(self):
+        self.read_bases = _as_u8(self.read_bases)
+        self.read_quals = _as_u8(self.read_quals)
+        self.insertion_gop = _as_u8(self.insertion_gop)
+        self.deletion_gop = _as_u8(self.deletion_gop)
+        self.overall_gcp = _as_u8(self.overall_gcp)
+
+
+@dataclasses.dataclass
+class HaplotypeData:
+    """Equivalent of HaplotypeDataHolder (pairhmm/JavaData.h:61-62)."""
+
+    haplotype_bases: np.ndarray
+
+    def __post_init__(self):
+        self.haplotype_bases = _as_u8(self.haplotype_bases)
+
+
+@dataclasses.dataclass
+class PairHMMNativeArguments:
+    """Mirror of PairHMMNativeArguments (pairhmm/IntelPairHmm.java:85-119).
+
+    ``max_number_of_threads`` is the reference's OpenMP worker clamp; in the
+    port it will cap how many local GPUs the engine spans.  Only 1 (one
+    device) is supported so far.
+    """
+
+    use_double_precision: bool = False
+    max_number_of_threads: int = 1
+
+
+def _const_quals_of(reads: Sequence[ReadData]):
+    """(iq, dq, gcp) constants when every read's planes are uniform (the
+    GATK default-GOP flow), else None.  Planes are deduplicated by object
+    identity first — the pipeline shares one plane per length — so the scan
+    is O(unique planes), not O(reads)."""
+    first = reads[0]
+    c = (int(first.insertion_gop[0]), int(first.deletion_gop[0]),
+         int(first.overall_gcp[0]))
+    seen: set = set()
+    for rd in reads:
+        for plane, cv in ((rd.insertion_gop, c[0]), (rd.deletion_gop, c[1]),
+                          (rd.overall_gcp, c[2])):
+            key = (id(plane), cv)  # an object may serve several roles
+            if key in seen:
+                continue
+            seen.add(key)
+            if plane[0] != cv or not (plane == cv).all():
+                return None
+    return c
+
+
+def _extract_lanes(pk: batch_mod.PackedPairsIndexed, lanes):
+    """Per-lane variable-length (haps, reads, quals) of a lane subset of an
+    indexed batch — the compaction step of the lane-granular rescue (the
+    reference recomputes only the underflowed pair, IntelPairHmm.cc:157-165)."""
+    haps, reads, quals = [], [], []
+    for k in lanes:
+        k = int(k)
+        hl, rl = int(pk.haplen[k]), int(pk.rslen[k])
+        ri, hi = int(pk.ridx[k]), int(pk.hidx[k])
+        haps.append(pk.hap_u[:hl, hi])
+        reads.append(pk.readq_u[0][:rl, ri])
+        if pk.const_quals is not None:
+            iq, dq, gcp = (np.full(rl, v, np.uint8) for v in pk.const_quals)
+        else:
+            iq, dq, gcp = (pk.quals_u[i][:rl, ri] for i in range(3))
+        quals.append((pk.readq_u[1][:rl, ri], iq, dq, gcp))
+    return haps, reads, quals
+
+
+class _Launch:
+    """A dispatched scaled-kernel batch: its (3, P) result, in pinned host
+    memory once ``event`` has completed (or at once on the CPU), plus the
+    buffers that must outlive the asynchronous copies."""
+
+    def __init__(self, host_out: torch.Tensor, event, keep=()):
+        self.host_out = host_out
+        self.event = event
+        self.keep = keep
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        self.keep = ()
+        return self.host_out.numpy()
+
+
+class PairHMM:
+    """PairHMM forward-likelihood engine (float-first with double rescue).
+
+    ``compute_likelihoods`` follows ``pairhmm/IntelPairHmm.cc:125-181``:
+    every (read, hap) pair is computed by the scaled float32 kernel, and the
+    lanes the rescue policy selects are recomputed in float64.  With
+    ``use_double_precision=True`` everything runs in float64.
+    """
+
+    def __init__(self, args: PairHMMNativeArguments | None = None, *,
+                 device: str | torch.device = "cuda"):
+        self.initialize(args or PairHMMNativeArguments())
+        self.device = torch.device(device)
+
+    def initialize(self, args: PairHMMNativeArguments) -> None:
+        """Takes new arguments, as the reference's initializeNative does on
+        every call (IntelPairHmm.cc:88-91)."""
+        if args.max_number_of_threads < 0:
+            raise ValueError("maxNumberOfThreads must be >= 0")
+        if args.max_number_of_threads != 1:
+            raise NotImplementedError(
+                "max_number_of_threads != 1 (several GPUs) is not supported yet")
+        self.args = args
+
+    def done(self) -> None:  # parity with IntelPairHmm.done()
+        pass
+
+    def _f64_lanes(self, pk: batch_mod.PackedPairsIndexed, lanes) -> np.ndarray:
+        """Exact f64 log10 results for a lane subset, on the threaded native
+        oracle over the compacted lanes: rescue work scales with
+        ``len(lanes)``, not the packed group.  Recorded as the
+        ``pairhmm_rescue`` METRICS counter (items = lanes recomputed)."""
+        t0 = time.perf_counter()
+        lanes = np.asarray(lanes, np.int64)
+        haps, reads, quals = _extract_lanes(pk, lanes)
+        res = pairhmm_ref.pairhmm_scalar_batch(haps, reads, quals,
+                                               threads=utils.default_host_threads())
+        if profiling.metrics_enabled():
+            cells = int(np.sum(pk.haplen[lanes].astype(np.int64)
+                               * pk.rslen[lanes].astype(np.int64)))
+            profiling.METRICS.record("pairhmm_rescue", items=len(lanes), cells=cells,
+                                     seconds=time.perf_counter() - t0)
+        return res
+
+    def _dispatch(self, pk: batch_mod.PackedPairsIndexed) -> _Launch:
+        """Launch the scaled kernel on one indexed batch without waiting.
+        On CUDA the planes go up from pinned buffers with non-blocking
+        copies on the current stream, and the result comes back the same
+        way; the returned handle's event marks its arrival."""
+        arrays = {"hap_u": pk.hap_u, "readq_u": pk.readq_u, "ridx": pk.ridx,
+                  "hidx": pk.hidx, "haplen": pk.haplen, "rslen": pk.rslen}
+        if pk.quals_u is not None:
+            arrays["quals_u"] = pk.quals_u
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+        if self.device.type != "cuda":
+            dev = {k: v.to(self.device) for k, v in host.items()}
+            out = pairhmm_cuda.pairhmm_scaled(**dev, const_quals=pk.const_quals)
+            return _Launch(out.cpu(), None)
+        pinned = {k: v.pin_memory() for k, v in host.items()}
+        dev = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
+        out = pairhmm_cuda.pairhmm_scaled(**dev, const_quals=pk.const_quals)
+        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host_out.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+        return _Launch(host_out, event, keep=(pinned, dev, out))
+
+    def _forward_scaled_finalize(self, pk, stacked: np.ndarray):
+        """Reconstruct the f32 result of a scaled-kernel batch and classify
+        its lanes for the host-f64 rescue.  Returns (log10 results, lanes
+        to rescue)."""
+        n = pk.n_real
+        mant = stacked[0].view(np.float32)[:n].astype(np.float64)
+        ex = stacked[1][:n].astype(np.float64)
+        flag = stacked[2][:n]
+        raw32 = np.ldexp(mant, ex.astype(np.int64)).astype(np.float32)
+        in_range = raw32 >= MIN_ACCEPTED
+        with np.errstate(divide="ignore", invalid="ignore"):
+            res_in = pairhmm_ops.pairhmm_log10_from_raw_f32(raw32)
+        res_deep = pairhmm_cuda.log10_of(mant, ex)
+        res = np.where(in_range, res_in, res_deep)
+        # host-f64 rescue policy (GKL_TPU_RESCUE):
+        #   flagged (default) — rescue deep lanes whose column spread
+        #     exceeded the kernel's f32 window, plus lanes past the f64
+        #     subnormal parity zone or without a finite result;
+        #   device  — trust the scaled kernel wherever its result is finite;
+        #   host    — rescue every deep lane (reference-exact).
+        deep = ~in_range & (~np.isfinite(res_deep) | (res_deep < -600.0))
+        mode = os.environ.get("GKL_TPU_RESCUE", "flagged")
+        if mode == "host":
+            deep = ~in_range
+        elif mode != "device":
+            deep = deep | (~in_range & (flag != 0))
+        return res, deep
+
+    def compute_likelihoods_async(
+        self,
+        reads: Sequence[ReadData],
+        haplotypes: Sequence[HaplotypeData],
+    ) -> "PendingLikelihoods":
+        """Dispatch the cross-product batch without waiting for the device.
+
+        Reads and haplotypes are grouped by their own length buckets; each
+        read-group x hap-group pair is one deduplicated batch and one kernel
+        launch.  The returned handle materialises the results, including the
+        float-to-double rescue, on ``.result()``: the streaming pipeline's
+        building block, so that chunk N+1's host work overlaps chunk N's
+        device time.
+        """
+        if reads is None or haplotypes is None:
+            raise TypeError("readDataArray/haplotypeDataArray is null")
+        if len(reads) == 0 or len(haplotypes) == 0:
+            raise ValueError("readDataArray/haplotypeDataArray is empty")
+        for rd in reads:
+            if rd.read_bases is None or len(rd.read_bases) == 0:
+                raise ValueError("read bases are null or empty")
+            if not (
+                len(rd.read_bases) == len(rd.read_quals) == len(rd.insertion_gop)
+                == len(rd.deletion_gop) == len(rd.overall_gcp)
+            ):
+                raise ValueError("read arrays must all have the read's length")
+        for hp in haplotypes:
+            if hp.haplotype_bases is None or len(hp.haplotype_bases) == 0:
+                raise ValueError("haplotype bases are null or empty")
+        nr, nh = len(reads), len(haplotypes)
+        t0 = time.perf_counter()
+        rlens = [len(rd.read_bases) for rd in reads]
+        hlens = [len(hp.haplotype_bases) for hp in haplotypes]
+        # sum over pairs of len_r * len_h over the full cross product
+        cells = sum(rlens) * sum(hlens)
+
+        if self.args.use_double_precision:
+            # the native oracle is the engine: exact f64 with gradual
+            # underflow, like the reference's double kernel
+            pairs = [(hp.haplotype_bases, rd.read_bases,
+                      (rd.read_quals, rd.insertion_gop, rd.deletion_gop, rd.overall_gcp))
+                     for rd in reads for hp in haplotypes]
+            return PendingLikelihoods(self, nr * nh, [("f64", None, pairs, None)], t0, cells)
+
+        const_quals = _const_quals_of(reads)
+        rgroups: dict = {}
+        for i, ln in enumerate(rlens):
+            rgroups.setdefault(batch_mod.bucket_length(ln), []).append(i)
+        hgroups: dict = {}
+        for j, ln in enumerate(hlens):
+            hgroups.setdefault(batch_mod.bucket_length(ln), []).append(j)
+        work = []
+        for rids in rgroups.values():
+            rq = [(reads[i].read_quals, reads[i].insertion_gop,
+                   reads[i].deletion_gop, reads[i].overall_gcp) for i in rids]
+            rbases = [reads[i].read_bases for i in rids]
+            for hids in hgroups.values():
+                pk = batch_mod.pack_pairs_indexed(
+                    [haplotypes[j].haplotype_bases for j in hids], rbases, rq,
+                    const_quals=const_quals)
+                idxs = (np.asarray(rids, np.int64)[:, None] * nh
+                        + np.asarray(hids, np.int64)[None, :]).ravel()
+                work.append(("scaled", idxs, pk, self._dispatch(pk)))
+        return PendingLikelihoods(self, nr * nh, work, t0, cells)
+
+    def compute_likelihoods(
+        self,
+        reads: Sequence[ReadData],
+        haplotypes: Sequence[HaplotypeData],
+        likelihoods: np.ndarray | None = None,
+    ) -> np.ndarray:
+        """Cross-product likelihoods, read-major (JavaData.h:84-106)."""
+        out = self.compute_likelihoods_async(reads, haplotypes).result()
+        if likelihoods is not None:
+            likelihoods[: len(out)] = out
+            return likelihoods
+        return out
+
+
+class PendingLikelihoods:
+    """Handle for a dispatched likelihood batch (compute_likelihoods_async).
+
+    ``result()`` waits for each bucket's kernel, applies the float-to-double
+    rescue policy and returns the (n,) float64 log10 likelihoods in pair
+    order.  Resolving twice returns the same array.
+    """
+
+    def __init__(self, hmm: PairHMM, n: int, work, t0: float, cells: int):
+        self._hmm = hmm
+        self._n = n
+        self._work = work
+        self._t0 = t0
+        self._cells = cells
+        self._out: np.ndarray | None = None
+
+    def result(self) -> np.ndarray:
+        if self._out is not None:
+            return self._out
+        hmm = self._hmm
+        out = np.zeros(self._n, np.float64)
+        for kind, idxs, packed, launch in self._work:
+            if kind == "f64":
+                haps, rds, quals = zip(*packed)
+                out[:] = pairhmm_ref.pairhmm_scalar_batch(
+                    haps, rds, quals, threads=utils.default_host_threads())
+                continue
+            res, needs_rescue = hmm._forward_scaled_finalize(packed, launch.wait())
+            if np.any(needs_rescue):
+                # lane-granular rescue: only the selected lanes are
+                # compacted and recomputed in exact f64
+                lanes = np.nonzero(needs_rescue)[0]
+                res[lanes] = hmm._f64_lanes(packed, lanes)
+            out[idxs] = res
+        self._work = ()
+        self._out = out
+        if profiling.metrics_enabled():
+            profiling.METRICS.record(
+                "pairhmm", items=self._n, cells=self._cells,
+                seconds=time.perf_counter() - self._t0,
+            )
+        return out
+
+
+class PairHMMOMP(PairHMM):
+    """Parity alias for IntelPairHmmOMP (pairhmm/IntelPairHmmOMP.java:29-35):
+    the same engine under the reference's other name."""
+
+
+class PairHMMFpga(PairHMM):
+    """Parity alias for IntelPairHmmFpga (pairhmm/IntelPairHmmFpga.java:36-39):
+    the same engine; the accelerator here is the GPU."""

@@ -1,0 +1,214 @@
+"""Batch planning: padding/bucketing variable-length pairs into fixed shapes.
+
+Counterpart of ``gkl_tpu/batch.py`` (PairHMM part).  Lengths pad to a small
+ladder of buckets so one kernel launch serves a whole shape class; the
+arrays are (length, lane) so neighbouring lanes sit at neighbouring
+addresses, which is what the CUDA kernel's one-thread-per-lane loads want.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+# Length ladder: dense at small sizes, multiplicative afterwards.  Every
+# rung is a multiple of 8, the scaled kernel's renormalisation period.
+_LEN_LADDER = [8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 448, 512, 640, 768, 1024]
+
+# Lanes pad to a multiple of this.  The CUDA kernel masks ragged lane
+# counts itself; 8 keeps padding waste small.
+LANE_MULTIPLE = 8
+
+
+def bucket_length(n: int) -> int:
+    """Smallest ladder value >= n (beyond the ladder: next multiple of 256)."""
+    for b in _LEN_LADDER:
+        if n <= b:
+            return b
+    return ((n + 255) // 256) * 256
+
+
+def bucket_lanes(n: int, lane_multiple: int = LANE_MULTIPLE) -> int:
+    """Pad a lane count to a multiple of ``lane_multiple`` (at least one)."""
+    return max(lane_multiple, ((n + lane_multiple - 1) // lane_multiple) * lane_multiple)
+
+
+@dataclasses.dataclass
+class PackedPairs:
+    """Column-major (length, lane) padded arrays for one shape bucket."""
+
+    hap: np.ndarray  # (H, P) uint8
+    read: np.ndarray  # (R, P) uint8
+    q: np.ndarray  # (R, P) uint8
+    iq: np.ndarray  # (R, P) uint8
+    dq: np.ndarray  # (R, P) uint8
+    gcp: np.ndarray  # (R, P) uint8
+    haplen: np.ndarray  # (P,) int32
+    rslen: np.ndarray  # (P,) int32
+    n_real: int  # lanes [0, n_real) are real pairs
+
+
+def _pad_columns(seqs: Sequence[np.ndarray], length: int, lanes: int, fill: int) -> np.ndarray:
+    out = np.full((length, lanes), fill, dtype=np.uint8)
+    n = len(seqs)
+    if n and all(len(s) == len(seqs[0]) for s in seqs):
+        # uniform lengths (fixed-length reads): one vectorized stack
+        out[: len(seqs[0]), :n] = np.stack(seqs, axis=1)
+        return out
+    for k, s in enumerate(seqs):
+        out[: len(s), k] = s
+    return out
+
+
+def pack_pairs(
+    haps: Sequence[np.ndarray],
+    reads: Sequence[np.ndarray],
+    quals: Sequence[Sequence[np.ndarray]],
+    lane_multiple: int = LANE_MULTIPLE,
+    qual_fill: int = 40,
+) -> PackedPairs:
+    """Pack equal-bucket pairs into padded (len, lane) arrays.
+
+    ``quals`` is a sequence of (q, iq, dq, gcp) per pair.  Padding quals use
+    ``qual_fill`` (a benign mid-range phred); padded rows and columns never
+    reach a result because per-lane lengths mask them.
+    """
+    n = len(haps)
+    P = bucket_lanes(n, lane_multiple)
+    H = bucket_length(max(len(h) for h in haps))
+    R = bucket_length(max(len(r) for r in reads))
+
+    hap = _pad_columns(haps, H, P, 0)
+    read = _pad_columns(reads, R, P, 0)
+    q = _pad_columns([qs[0] for qs in quals], R, P, qual_fill)
+    iq = _pad_columns([qs[1] for qs in quals], R, P, qual_fill)
+    dq = _pad_columns([qs[2] for qs in quals], R, P, qual_fill)
+    gcp = _pad_columns([qs[3] for qs in quals], R, P, qual_fill)
+
+    haplen = np.ones(P, np.int32)
+    rslen = np.ones(P, np.int32)
+    haplen[:n] = [len(h) for h in haps]
+    rslen[:n] = [len(r) for r in reads]
+    return PackedPairs(hap, read, q, iq, dq, gcp, haplen, rslen, n)
+
+
+@dataclasses.dataclass
+class PackedPairsIndexed:
+    """Cross-product batch with deduplicated planes + per-pair indices.
+
+    The reference marshals each read and each haplotype once and loops the
+    cross product in the native kernel (``pairhmm/JavaData.h:84-106``).
+    Here the unique (len, lane) planes go to the device once with two int32
+    index vectors, and the kernel gathers each lane's columns itself.  When
+    every read shares constant insertion/deletion GOP and GCP planes (the
+    GATK default-GOP flow), those planes are not sent at all.
+    """
+
+    hap_u: np.ndarray  # (H, nu_h) uint8 — unique haplotype columns
+    readq_u: np.ndarray  # (2, R, nu_r) uint8 — [bases, quals] per unique read
+    quals_u: np.ndarray | None  # (3, R, nu_r) uint8 [iq, dq, gcp]; None = const
+    const_quals: tuple[int, int, int] | None  # (iq, dq, gcp) when constant
+    ridx: np.ndarray  # (P,) int32 — pair lane -> unique read column
+    hidx: np.ndarray  # (P,) int32 — pair lane -> unique hap column
+    haplen: np.ndarray  # (P,) int32
+    rslen: np.ndarray  # (P,) int32
+    n_real: int
+
+    def materialize(self) -> PackedPairs:
+        """Expand to the dense per-pair representation (host-side)."""
+        hap = np.take(self.hap_u, self.hidx, axis=1)
+        read = np.take(self.readq_u[0], self.ridx, axis=1)
+        q = np.take(self.readq_u[1], self.ridx, axis=1)
+        if self.const_quals is not None:
+            iq = np.full_like(read, self.const_quals[0])
+            dq = np.full_like(read, self.const_quals[1])
+            gcp = np.full_like(read, self.const_quals[2])
+        else:
+            iq = np.take(self.quals_u[0], self.ridx, axis=1)
+            dq = np.take(self.quals_u[1], self.ridx, axis=1)
+            gcp = np.take(self.quals_u[2], self.ridx, axis=1)
+        return PackedPairs(hap, read, q, iq, dq, gcp, self.haplen,
+                           self.rslen, self.n_real)
+
+
+def pack_pairs_indexed(
+    haps: Sequence[np.ndarray],
+    reads: Sequence[np.ndarray],
+    read_quals: Sequence[tuple],
+    *,
+    lane_multiple: int = LANE_MULTIPLE,
+    qual_fill: int = 40,
+    const_quals: tuple[int, int, int] | None = None,
+) -> PackedPairsIndexed:
+    """Pack the full ``reads`` x ``haps`` cross product (read-major) with
+    deduplicated planes.  ``read_quals`` holds (q, iq, dq, gcp) per read;
+    iq/dq/gcp are ignored when ``const_quals`` is given."""
+    nr, nh = len(reads), len(haps)
+    H = bucket_length(max(len(h) for h in haps))
+    R = bucket_length(max(len(r) for r in reads))
+    nu_r = bucket_lanes(nr, 8)
+    nu_h = bucket_lanes(nh, 8)
+
+    readq_u = np.stack([
+        _pad_columns(reads, R, nu_r, 0),
+        _pad_columns([qs[0] for qs in read_quals], R, nu_r, qual_fill),
+    ])
+    quals_u = None
+    if const_quals is None:
+        quals_u = np.stack([
+            _pad_columns([qs[1] for qs in read_quals], R, nu_r, qual_fill),
+            _pad_columns([qs[2] for qs in read_quals], R, nu_r, qual_fill),
+            _pad_columns([qs[3] for qs in read_quals], R, nu_r, qual_fill),
+        ])
+    hap_u = _pad_columns(haps, H, nu_h, 0)
+
+    n = nr * nh
+    P = bucket_lanes(n, lane_multiple)
+    ridx = np.zeros(P, np.int32)
+    hidx = np.zeros(P, np.int32)
+    ridx[:n] = np.repeat(np.arange(nr, dtype=np.int32), nh)
+    hidx[:n] = np.tile(np.arange(nh, dtype=np.int32), nr)
+    rlen = np.array([len(r) for r in reads], np.int32)
+    hlen = np.array([len(h) for h in haps], np.int32)
+    haplen = np.ones(P, np.int32)
+    rslen = np.ones(P, np.int32)
+    haplen[:n] = hlen[hidx[:n]]
+    rslen[:n] = rlen[ridx[:n]]
+    return PackedPairsIndexed(hap_u, readq_u, quals_u, const_quals,
+                              ridx, hidx, haplen, rslen, n)
+
+
+def group_by_bucket(haps: Sequence[np.ndarray], reads: Sequence[np.ndarray]):
+    """Group pair indices by (R-bucket, H-bucket) shape class."""
+    groups: dict[tuple[int, int], list[int]] = {}
+    for k, (h, r) in enumerate(zip(haps, reads)):
+        key = (bucket_length(len(r)), bucket_length(len(h)))
+        groups.setdefault(key, []).append(k)
+    return groups
+
+
+def from_reference(packed) -> PackedPairs | PackedPairsIndexed:
+    """The port's dataclass for a batch packed by another implementation
+    (the JAX package's ``PackedPairs``/``PackedPairsIndexed``), read by its
+    numpy fields, so that both engines can run one identical batch."""
+    if hasattr(packed, "ridx"):
+        return PackedPairsIndexed(
+            hap_u=np.asarray(packed.hap_u, np.uint8),
+            readq_u=np.asarray(packed.readq_u, np.uint8),
+            quals_u=(None if packed.quals_u is None
+                     else np.asarray(packed.quals_u, np.uint8)),
+            const_quals=(None if packed.const_quals is None
+                         else tuple(int(v) for v in packed.const_quals)),
+            ridx=np.asarray(packed.ridx, np.int32),
+            hidx=np.asarray(packed.hidx, np.int32),
+            haplen=np.asarray(packed.haplen, np.int32),
+            rslen=np.asarray(packed.rslen, np.int32),
+            n_real=int(packed.n_real),
+        )
+    return PackedPairs(*(np.asarray(getattr(packed, f), np.uint8)
+                         for f in ("hap", "read", "q", "iq", "dq", "gcp")),
+                       haplen=np.asarray(packed.haplen, np.int32),
+                       rslen=np.asarray(packed.rslen, np.int32),
+                       n_real=int(packed.n_real))

@@ -1,0 +1,101 @@
+"""Host C++ runtime loader — counterpart of ``gkl_tpu/native_lib.py``.
+
+The port reuses the JAX package's C++ sources as they are: they are read by
+path from ``gkl_tpu/native/`` (never imported) and compiled with g++ on
+first use into ``build/gkl_tpu_torch/`` under the repository root, keyed by
+a hash of the sources, flags and host CPU.  Unlike the JAX package, a failed
+build raises: the port has no pure-Python fallbacks for these libraries.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "gkl_tpu_torch")
+NATIVE_SRC_DIR = os.path.join(REPO_ROOT, "gkl_tpu", "native")
+
+_SRC = {
+    "gkl_codec": ["codec.cc", "deflate_fast.cc", "inflate_fast.cc"],
+    "gkl_bam": ["bam_scan.cc"],
+    "gkl_pairhmm_oracle": ["pairhmm_oracle.cc"],
+}
+_LINK = {"gkl_codec": ["-lz"], "gkl_bam": [], "gkl_pairhmm_oracle": []}
+
+_cache: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class BuildError(RuntimeError):
+    """A native or CUDA library failed to compile."""
+
+
+def _host_tag() -> str:
+    """Platform and CPU feature flags: ``-march=native`` binaries run only
+    on hosts with the same ISA extensions."""
+    bits = [platform.machine(), platform.system()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    bits.append(" ".join(sorted(line.split(":", 1)[1].split())))
+                    break
+    except OSError:
+        pass
+    return "|".join(bits)
+
+
+def build_shared_library(name: str, sources: list[str], command: list[str],
+                         link: list[str] = (), key_extra: str = "") -> str:
+    """Compile ``sources`` with ``command -o out sources link`` into
+    ``BUILD_DIR`` unless a library built from the same sources and command
+    is already there; returns its path.  The compiler's messages are kept
+    beside it in ``<path>.log``.  A file lock serialises concurrent builds
+    by several processes; the output is renamed into place whole."""
+    h = hashlib.sha256()
+    h.update(" ".join([*command, *link]).encode())
+    h.update(key_extra.encode())
+    for s in sources:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    so_path = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        if os.path.exists(so_path):
+            return so_path
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        proc = subprocess.run([*command, "-o", tmp, *sources, *link],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(f"build of {name} failed:\n{' '.join(proc.args)}\n"
+                             f"{proc.stdout}{proc.stderr}")
+        with open(so_path + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so_path)
+    return so_path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load (building if needed) a host runtime library by name."""
+    if name not in _SRC:
+        raise ValueError(f"unknown native library: {name!r}")
+    with _lock:
+        lib = _cache.get(name)
+        if lib is None:
+            sources = [os.path.join(NATIVE_SRC_DIR, s) for s in _SRC[name]]
+            # -march=native is safe: libraries compile on the host that
+            # runs them, and the cache key carries that host's CPU flags
+            cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+            path = build_shared_library(name, sources, cmd, _LINK[name],
+                                        key_extra=_host_tag())
+            lib = _cache[name] = ctypes.CDLL(path)
+        return lib

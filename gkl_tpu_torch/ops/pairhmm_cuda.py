@@ -1,0 +1,311 @@
+"""Scaled-f32 PairHMM forward: the CUDA kernel's wrapper and its plain twin.
+
+Counterpart of ``gkl_tpu/ops/pairhmm_pallas.py`` (``_scaled_kernel``,
+``pairhmm_raw_pallas_scaled``, ``expand_indexed_planes`` and the transition
+prep).  :func:`pairhmm_scaled` takes a deduplicated batch: on CUDA tensors
+it launches ``csrc/pairhmm_scaled.cu`` (built for sm_90a) or raises; on CPU
+tensors it runs :func:`pairhmm_raw_scaled_reference`, the same function in
+plain PyTorch.  Each result is the per-lane forward probability as
+``mantissa * 2^exp2`` plus a window flag (see the kernel's source note).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import context as ctx_mod
+from .. import cuda_build
+from .pairhmm import N_CODE, _shift_down, transition_rows
+
+# Launches of the CUDA kernel in this process.
+LAUNCHES = 0
+
+_MAX_SUBNORMAL = 2.0 ** -126 - 2.0 ** -149  # largest f32 subnormal
+_M2M_ENTRIES = 128 * 129 // 2  # match-to-match cache entries for quals <= 127
+_INITIAL_EXP2 = 120  # the f32 INITIAL_CONSTANT is 2^120 (context.py)
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush f32 subnormals to zero, as the kernel (built with -ftz=true)
+    and the TPU do after every product.  For the DP's values, which are
+    never negative."""
+    return torch.nn.functional.threshold(x, _MAX_SUBNORMAL, 0.0)
+
+
+def _as_f32(bits: torch.Tensor) -> torch.Tensor:
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _exponent_of(v: torch.Tensor) -> torch.Tensor:
+    return (((v.view(torch.int32) >> 23) & 0xFF) - 127).clamp(-126, 126)
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e for integer e in [-126, 127], exact."""
+    return _as_f32((e + 127) << 23)
+
+
+def _pow2m(d: torch.Tensor) -> torch.Tensor:
+    """2^d for d <= 0 as the product of two exact factors, flushing below
+    2^-126."""
+    d1 = d.clamp(min=-126)
+    d2 = (d - d1).clamp(-126, 0)
+    return _ftz(_pow2(d1) * _pow2(d2))
+
+
+def _renorm_mant(m: torch.Tensor):
+    """``(m2, e)`` with ``m == m2 * 2^e`` and ``m2`` in [1, 2)."""
+    e = ((m.view(torch.int32) >> 23) & 0xFF) - 127
+    return m * _pow2(-e), e
+
+
+def _split_coeff(m: torch.Tensor, e: torch.Tensor):
+    """Split a scan coefficient ``m * 2^e`` (m in [1, 2), e <= 0) into two
+    f32 factors whose product applies it exactly; zero below 2^-252."""
+    eh = e >> 1
+    el = e - eh
+
+    def pow2c(x):
+        return _as_f32((x + 127).clamp(1, 254) << 23)
+
+    q = torch.where(e < -252, torch.zeros_like(m), m * pow2c(eh))
+    return q, pow2c(el)
+
+
+def pairhmm_raw_scaled_reference(hap, read, q, iq, dq, gcp, haplen, rslen):
+    """Scaled-f32 PairHMM forward in plain PyTorch, on the inputs' device.
+
+    Dense (length, lane) planes as in ``ops.pairhmm.pairhmm_raw``; ``R`` a
+    multiple of 8.  Returns ``(mantissa (P,) f32, exp2 (P,) i32, flag (P,)
+    i32)``: a row sweep with the Y recurrence as a Hillis-Steele scan over
+    split power-of-two coefficients, per-lane renormalisation to ~2^90
+    every 8 rows, an accumulator with its own exponent, and the liveness
+    flag sampled at row 3 and row 7 of each 8-row chunk.  Subnormals are
+    flushed after every product, as in the kernel.
+    """
+    f = torch.float32
+    ctx = ctx_mod.pairhmm_context("float32")
+    dev = hap.device
+    H, P = hap.shape
+    R = read.shape[0]
+    if R % 8:
+        raise ValueError(f"read rows must be a multiple of 8, got {R}")
+    # pXX == pYY == p_c, the gap continuation probability
+    p_mm, p_gapm, p_mx, p_c, p_my, _, dmatch, dmis = transition_rows(
+        q, iq, dq, gcp, ctx, f, dev)
+    inity = (torch.tensor(ctx.INITIAL_CONSTANT, dtype=f, device=dev) / haplen.to(f))[None, :]
+    hap_is_n = hap == N_CODE
+    row_iota = torch.arange(H, device=dev)[:, None]
+    valid = (row_iota + 1) <= haplen[None, :].to(torch.int64)
+    col_valid = valid.to(f)
+    rslen = rslen.to(torch.int32)
+    zero_row = torch.zeros((1, P), dtype=f, device=dev)
+
+    m = torch.zeros((H, P), dtype=f, device=dev)
+    x = torch.zeros((H, P), dtype=f, device=dev)
+    y = inity.expand(H, P).clone()
+    live = valid.clone()
+    flag = torch.zeros(P, dtype=torch.int32, device=dev)
+    acc_m = torch.zeros(P, dtype=f, device=dev)
+    e_acc = torch.zeros(P, dtype=torch.int32, device=dev)
+    e_state = torch.zeros(P, dtype=torch.int32, device=dev)
+
+    # Y-scan span coefficients pYY^(2^level) for every row at once: spans
+    # 1-2 as plain products (pYY >= 2^-43 for & 127 quals, so pYY^2 cannot
+    # underflow), wider spans as (mantissa, exponent) pairs applied as two
+    # exact factors
+    spans = []
+    alpha = p_c
+    am = ae = None
+    k_span = 1
+    while k_span < H:
+        if k_span == 1:
+            spans.append((alpha, None))
+        elif k_span == 2:
+            alpha = _ftz(alpha * alpha)
+            spans.append((alpha, None))
+        else:
+            if am is None:
+                am, ae = _renorm_mant(alpha)
+            am, d = _renorm_mant(am * am)
+            ae = ae * 2 + d
+            spans.append(_split_coeff(am, ae))
+        k_span <<= 1
+
+    for c in range(R // 8):
+        acc_chunk = torch.zeros(P, dtype=f, device=dev)
+        live_mid = None
+        for k in range(8):
+            r = 8 * c + k
+            rc = read[r]
+            match = (hap == rc[None, :]) | hap_is_n | (rc == N_CODE)[None, :]
+            prior = torch.where(match, dmatch[r][None, :], dmis[r][None, :])
+            t_comb = _ftz(p_mm[r] * m) + _ftz(p_gapm[r] * (x + y))
+            first = _ftz(p_gapm[r] * inity[0])[None, :] if r == 0 else zero_row
+            m_new = _ftz(prior * _shift_down(t_comb, 1, first))
+            x_new = _ftz(p_mx[r] * m) + _ftz(p_c[r] * x)
+            b = _ftz(p_my[r] * _shift_down(m_new, 1, zero_row))
+            for level, (q_a, p2_a) in enumerate(spans):
+                b_sh = _shift_down(b, 1 << level, zero_row)
+                if p2_a is None:
+                    b = _ftz(q_a[r] * b_sh) + b
+                else:
+                    b = _ftz(_ftz(q_a[r] * b_sh) * p2_a[r]) + b
+            m, x, y = m_new, x_new, b
+            row_sum = ((m + x) * col_valid).sum(dim=0)
+            acc_chunk = acc_chunk + torch.where(rslen == r + 1, row_sum, torch.zeros_like(row_sum))
+            if k == 3:
+                live_mid = ((m + x + y) * col_valid) > 0
+        # fold the chunk into the accumulator by value exponents
+        has_acc = acc_m > 0
+        has_chunk = acc_chunk > 0
+        chunk_e = e_state + _exponent_of(acc_chunk)
+        e_new = torch.where(has_acc & has_chunk, torch.maximum(e_acc, chunk_e),
+                            torch.where(has_acc, e_acc, chunk_e))
+        d_acc = torch.where(has_acc, e_acc - e_new, torch.zeros_like(e_acc))
+        d_chunk = torch.where(has_chunk, e_state - e_new, torch.zeros_like(e_acc))
+        acc_m = _ftz(acc_m * _pow2m(d_acc)) + _ftz(acc_chunk * _pow2m(d_chunk))
+        ea = torch.where(acc_m > 0, _exponent_of(acc_m), torch.zeros_like(e_acc))
+        acc_m = acc_m * _pow2(-ea)
+        e_acc = torch.where(acc_m > 0, e_new + ea, e_state)
+        # renormalise; columns past haplen are zeroed first
+        m_v, x_v, y_v = m * col_valid, x * col_valid, y * col_valid
+        live_now = (m_v + x_v + y_v) > 0
+        lost = (live & ~(live_mid & live_now)).any(dim=0)
+        gate = rslen > 8 * c
+        flag = flag | (gate & lost).to(torch.int32)
+        live = live_now
+        mx = torch.maximum(m_v, torch.maximum(x_v, y_v)).amax(dim=0)
+        e = _exponent_of(mx)
+        sf = _pow2(-e)[None, :]
+        up = torch.tensor(2.0 ** 90, dtype=f, device=dev)
+        m = _ftz(_ftz(m_v * sf) * up)
+        x = _ftz(_ftz(x_v * sf) * up)
+        y = _ftz(_ftz(y_v * sf) * up)
+        e_state = e_state + e - 90
+    return acc_m, e_acc, flag
+
+
+def expand_indexed_planes(hap_u, readq_u, ridx, hidx, *, const_quals=None,
+                          quals_u=None):
+    """Per-lane dense planes of an indexed batch: gather each lane's read
+    and hap columns, and fill constant iq/dq/gcp planes when the batch
+    carries the GATK default-GOP constants.  Returns (hap, read, q, iq,
+    dq, gcp)."""
+    ri = ridx.to(torch.int64)
+    read = readq_u[0].index_select(1, ri)
+    q = readq_u[1].index_select(1, ri)
+    hap = hap_u.index_select(1, hidx.to(torch.int64))
+    if const_quals is not None:
+        iq, dq, gcp = (torch.full_like(read, int(v)) for v in const_quals)
+    else:
+        iq, dq, gcp = (quals_u[i].index_select(1, ri) for i in range(3))
+    return hap, read, q, iq, dq, gcp
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device):
+    """The exact f32 context tables the kernel reads: ph2pr (128,) and the
+    match-to-match cache for quals <= 127 (8256,)."""
+    ctx = ctx_mod.pairhmm_context("float32")
+    ph2pr = torch.as_tensor(ctx.ph2pr, dtype=torch.float32).to(device)
+    m2m = torch.as_tensor(ctx.match_to_match[:_M2M_ENTRIES], dtype=torch.float32).to(device)
+    return ph2pr, m2m
+
+
+def _check(name, t, dtype, ndim, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-d {dtype}, got {t.dim()}-d {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def pairhmm_scaled(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
+                   const_quals=None, quals_u=None) -> torch.Tensor:
+    """Scaled-f32 PairHMM forward of an indexed batch.
+
+    Args:
+      hap_u:   (H, nu_h) uint8 unique haplotype columns.
+      readq_u: (2, R, nu_r) uint8 unique [read bases, base quals]; R % 8 == 0.
+      ridx/hidx: (P,) int32 lane -> unique read / hap column.
+      haplen/rslen: (P,) int32 per-lane lengths (1..H, 1..R).
+      const_quals: (iq, dq, gcp) constants, or None with
+      quals_u: (3, R, nu_r) uint8 unique [iq, dq, gcp] planes.
+
+    Returns a (3, P) int32 tensor on the inputs' device: row 0 holds the
+    f32 mantissa's bits (``out[0].view(torch.float32)``), row 1 the exp2,
+    row 2 the flag.  CPU tensors run the plain twin; CUDA tensors launch
+    the kernel (a lane with out-of-range indices or lengths gets a NaN
+    mantissa and flag -1).
+    """
+    global LAUNCHES
+    device = hap_u.device
+    _check("hap_u", hap_u, torch.uint8, 2, device)
+    _check("readq_u", readq_u, torch.uint8, 3, device)
+    for name, t in (("ridx", ridx), ("hidx", hidx), ("haplen", haplen), ("rslen", rslen)):
+        _check(name, t, torch.int32, 1, device)
+    H, nu_h = hap_u.shape
+    _, R, nu_r = readq_u.shape
+    P = ridx.shape[0]
+    if readq_u.shape[0] != 2 or R % 8:
+        raise ValueError(f"readq_u must be (2, R, nu_r) with R % 8 == 0, got {tuple(readq_u.shape)}")
+    if not hidx.shape[0] == haplen.shape[0] == rslen.shape[0] == P:
+        raise ValueError("ridx, hidx, haplen and rslen must have one entry per lane")
+    if (const_quals is None) == (quals_u is None):
+        raise ValueError("give exactly one of const_quals and quals_u")
+    if quals_u is not None:
+        _check("quals_u", quals_u, torch.uint8, 3, device)
+        if tuple(quals_u.shape) != (3, R, nu_r):
+            raise ValueError(f"quals_u must be (3, {R}, {nu_r}), got {tuple(quals_u.shape)}")
+
+    if device.type == "cpu":
+        planes = expand_indexed_planes(hap_u, readq_u, ridx, hidx,
+                                       const_quals=const_quals, quals_u=quals_u)
+        mant, ex, flag = pairhmm_raw_scaled_reference(*planes, haplen, rslen)
+        return torch.stack([mant.view(torch.int32), ex, flag])
+    if device.type != "cuda":
+        raise ValueError(f"no PairHMM kernel for device {device}")
+
+    lib = cuda_build.load()
+    ph2pr, m2m = _device_tables(device)
+    Ms = torch.empty((H, P), dtype=torch.float32, device=device)
+    Xs = torch.empty_like(Ms)
+    Ys = torch.empty_like(Ms)
+    live = torch.empty((H, P), dtype=torch.uint8, device=device)
+    out = torch.empty((3, P), dtype=torch.int32, device=device)
+    ciq, cdq, cgcp = const_quals if const_quals is not None else (0, 0, 0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.gkl_pairhmm_scaled(
+        hap_u.data_ptr(), H, nu_h,
+        readq_u.data_ptr(), R, nu_r,
+        quals_u.data_ptr() if quals_u is not None else None,
+        int(ciq), int(cdq), int(cgcp),
+        ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
+        ph2pr.data_ptr(), m2m.data_ptr(),
+        Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(), live.data_ptr(),
+        out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"pairhmm_scaled kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def unpack(out: torch.Tensor):
+    """(mantissa f32, exp2 i32, flag i32) views of a :func:`pairhmm_scaled` result."""
+    return out[0].view(torch.float32), out[1], out[2]
+
+
+def log10_of(mant, exp2) -> np.ndarray:
+    """float64 log10 likelihood of scaled results ``mant * 2^exp2``, with the
+    f32 initial constant 2^120 the kernel and its twin start from removed
+    exactly.  A zero mantissa gives -inf."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return (np.log10(np.asarray(mant, np.float64))
+                + (np.asarray(exp2, np.float64) - _INITIAL_EXP2) * np.log10(2.0))
