@@ -1,28 +1,56 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the PairHMM main path once on one GPU.
+"""Drive the PyTorch/CUDA port's active-region path once on one GPU.
 
 Run from the repository root with ``python3 chip_smoke.py``.  It needs one
 CUDA card of compute capability 9.0 (Hopper); without one it exits nonzero
-before printing any result.  Phases, one line each:
+before printing any result.  Phases, one line each (or a few):
 
 0. device: name and power limit, torch and CUDA versions;
-1. build: the CUDA kernel (nvcc, sm_90a) and the host C++ libraries;
-2. kernel vs its plain PyTorch twin on the card at the benchmark shape
-   (R=128, H=224, P=2048), with the gap quals as planes and as the GATK
-   constants, both timed; and on a deep-lane batch;
-3. the 104 golden cases through ``PairHMM()`` in both precision modes;
+1. build: the three CUDA kernels (one nvcc per source, sm_90a, all started
+   together, linked into one library) and the host C++ libraries;
+2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
+   shape (R=128, H=224, P=2048), with the gap quals as planes and as the
+   GATK constants, both timed; and on a deep-lane batch;
+3. the 104 PairHMM golden cases through ``PairHMM()`` in both precision
+   modes;
 4. the BAM pipeline against ``tests/data/pipeline_golden.txt``;
 5. a GATK-scale active region (10,240 reads x 8 haplotypes) through
    ``PairHMM.compute_likelihoods``, checked against the f64 oracle — the
-   main-path run whose kernel launches are counted.  Each of its kernel
-   outputs is held against the twin on the same batch, and the rescue
-   is recounted lane by lane from them;
-6. long pairs (H=4096, R=300) against the f64 oracle.
+   PairHMM path's run whose kernel launches are counted.  Each of its
+   kernel outputs is held against the twin on the same batch, and the
+   rescue is recounted lane by lane from them;
+6. long PairHMM pairs (H=4096, R=300) against the f64 oracle;
+7. Smith-Waterman kernel vs twin, bit for bit on the region the host walk
+   reads (bt codes of rows < reflen and columns < altlen, lastrow[:altlen],
+   lastcol[:reflen]): (a) the realignment shape N=448, M=256, P=10,240;
+   (b) the haplotype-to-reference shape N=4,096, alts 600-1,000, P=256;
+   (c) two pairs at the 32,767-base limit through ``SmithWaterman`` against
+   the native scalar aligner;
+8. PDHMM kernel vs twin (in-range lanes at 1e-5 in log10, the same lanes
+   below MIN_ACCEPTED): (a) R=256, H=448, P=8,192; (b) R=1,024, H=512,
+   P=512;
+9. the 3 PDHMM golden files through ``PDHMM()`` in both precision modes;
+10. ``pipeline.region_bam`` against every column of
+    ``tests/data/region_golden.txt``, then the whole test BAM with a sample
+    held against the oracles;
+11. the GATK-scale active region with its 4 PD haplotypes through the
+    public calls in region_stream's order (``PairHMM.compute_likelihoods``
+    -> argmax -> ``SmithWaterman.align_batch`` ->
+    ``PDHMM.compute_likelihoods``): the main path, whose launches of all
+    three kernels are counted, checked against the oracles as
+    ``gkl_tpu/validation.py::check_corpus`` does, timed median of 3.  Each
+    SW and PDHMM launch of its first run is held against the twin on the
+    same tensors, at the shapes the path gave it.
+
+``python3 chip_smoke.py --profile`` runs phases 0-1 and then the main path
+under ``torch.profiler`` instead: stage times, the card's busy time and
+idle share, and device time by kernel and copy, as one JSON line.
 
 The line before the last is a JSON object describing each kernel of the
-path (``max_abs_err`` is the largest in-range kernel-vs-twin difference of
-phases 2 and 5; ``ms``/``plain_ms`` are the bench shape with the GATK
-constants, the main path's branch); the last is ``{"ok": true, "device": {...}}``.  Any failure raises.
+path (``launches`` from phase 11; ``ms``/``plain_ms`` from phase 2's GATK
+constants, 7a and 8a; ``max_abs_err`` the largest in-range kernel-vs-twin
+difference seen); the last is ``{"ok": true, "device": {...}}``.  Any
+failure raises.
 """
 
 from __future__ import annotations
@@ -75,8 +103,9 @@ def active_region(n_reads=10240, n_haplotypes=8, n_pd_haplotypes=4, seed=0):
     """The synthetic active region of ``gkl_tpu/validation.py::build_corpus``
     (same generator, same draws): haplotypes 160-420 from one ancestor,
     reads 48-250 with 1-5% mutations and quals 18-45, every 64th read a
-    deep lane (250 bases, 25% mutations, quals 4-8).  Returns (haps,
-    [(seq, qual)], deep mask)."""
+    deep lane (250 bases, 25% mutations, quals 4-8), and the first
+    ``n_pd_haplotypes`` haplotypes again as PD haplotypes with 0-2 deletion
+    events each.  Returns (haps, [(seq, qual)], deep mask, [(seq, pd)])."""
     rng = np.random.default_rng(seed)
     ancestor = BASES[rng.integers(0, 4, 420)]
     haps = []
@@ -86,10 +115,15 @@ def active_region(n_reads=10240, n_haplotypes=8, n_pd_haplotypes=4, seed=0):
         mut = rng.random(L) < 0.01
         seq[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
         haps.append(seq)
-    for i in range(n_pd_haplotypes):  # PD events: drawn to keep the stream
+    pd_haps = []
+    for i in range(n_pd_haplotypes):
+        pd = np.zeros(len(haps[i]), np.uint8)
         for _ in range(int(rng.integers(0, 3))):
-            rng.integers(4, len(haps[i]) - 12)
-            rng.integers(2, 7)
+            j = int(rng.integers(4, len(haps[i]) - 12))
+            span = int(rng.integers(2, 7))
+            pd[j] = 2  # DEL_START
+            pd[j + span] = 4  # DEL_END
+        pd_haps.append((haps[i], pd))
     reads, deep = [], np.zeros(n_reads, bool)
     for r in range(n_reads):
         hap = haps[int(rng.integers(0, n_haplotypes))]
@@ -107,7 +141,7 @@ def active_region(n_reads=10240, n_haplotypes=8, n_pd_haplotypes=4, seed=0):
         mut = rng.random(L) < mut_rate
         seq[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
         reads.append((seq, rng.integers(qlo, qhi, L).astype(np.uint8)))
-    return haps, reads, deep
+    return haps, reads, deep, pd_haps
 
 
 def to_read_data(reads):
@@ -212,18 +246,21 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernels (one nvcc per source, all started together, linked
+    into one library) and the host C++ libraries."""
     from gkl_tpu_torch import cuda_build, native_lib
 
-    for name in ("gkl_pairhmm_oracle", "gkl_codec", "gkl_bam"):
-        t0 = time.perf_counter()
-        native_lib.load(name)
-        log("1 build", library=name, seconds=round(time.perf_counter() - t0, 3))
     t0 = time.perf_counter()
     cuda_build.load()
     log("1 build", library="gkl_tpu_torch_kernels (nvcc sm_90a)",
         seconds=round(time.perf_counter() - t0, 3))
+    for name in ("gkl_pairhmm_oracle", "gkl_codec", "gkl_bam", "gkl_sw_runtime",
+                 "gkl_pdhmm_oracle"):
+        t0 = time.perf_counter()
+        native_lib.load(name)
+        log("1 build", library=name, seconds=round(time.perf_counter() - t0, 3))
     for line in cuda_build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("1 build", ptxas=line.strip().replace(" ", "_"))
 
 
@@ -269,7 +306,7 @@ def phase_kernel_vs_twin():
 
     # deep lanes: the active region's deep reads (quals 4-8, 25% mutations)
     # against every haplotype, plus random reads at Q50 (log10 ~ -250)
-    haps, reads, deep = active_region(n_reads=64 * 32)
+    haps, reads, deep, _ = active_region(n_reads=64 * 32)
     rd = to_read_data([reads[i] for i in np.nonzero(deep)[0]])
     rng = np.random.default_rng(1)
     q50 = np.full(256, 50, np.uint8)
@@ -364,7 +401,7 @@ def phase_active_region():
             self.batches.append((pk, stacked.copy()))
             return super()._forward_scaled_finalize(pk, stacked)
 
-    haps, reads, deep = active_region()
+    haps, reads, deep, _ = active_region()
     rd = to_read_data(reads)
     hd = [HaplotypeData(h) for h in haps]
     nr, nh = len(rd), len(hd)
@@ -465,24 +502,517 @@ def phase_long_pairs():
     if not np.isfinite(got).all() or err >= TOL_ORACLE:
         raise AssertionError(f"long pairs vs f64 oracle: max |err| = {err:.3e}")
 
+# HaplotypeCaller's read-to-haplotype realignment scores
+SW_GATK = (200, -150, -260, -11)
+SOFTCLIP, INDEL = 9, 10
 
-def main() -> int:
+
+def sw_batch(N, P, ref_lo, alt_lo, alt_hi, seed):
+    """(ref (N, P), alt (M, P), reflen, altlen) with M the alt length's
+    bucket: each alt is a window of its lane's reference with 3%
+    substitutions, two deleted and two inserted bases."""
+    from gkl_tpu_torch import batch as batch_mod
+
+    rng = np.random.default_rng(seed)
+    M = batch_mod.bucket_length(alt_hi)
+    ref = BASES[rng.integers(0, 4, (N, P))]
+    alt = np.ones((M, P), np.uint8)
+    reflen = rng.integers(ref_lo, N + 1, P).astype(np.int32)
+    altlen = rng.integers(alt_lo, alt_hi + 1, P).astype(np.int32)
+    for p in range(P):
+        n, m = int(reflen[p]), int(altlen[p])
+        start = int(rng.integers(0, max(1, n - m)))
+        a = np.resize(ref[start:n, p], m + 2)
+        a = np.delete(a, rng.integers(0, len(a), 2))
+        a = np.insert(a, rng.integers(0, len(a), 2), BASES[rng.integers(0, 4, 2)])[:m]
+        mut = rng.random(m) < 0.03
+        a[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+        alt[:m, p] = a
+    return ref, alt, reflen, altlen
+
+
+def phase_sw_kernel_vs_twin():
+    import torch
+
+    from gkl_tpu_torch import api_sw
+    from gkl_tpu_torch.ops import sw as sw_ops
+    from gkl_tpu_torch.ops import sw_cuda
+
+    dev = torch.device("cuda")
+    timing = None
+    shapes = (("7a realign", 448, 10240, 160, 48, 250, SOFTCLIP, 5),
+              ("7b hap_to_ref", 4096, 256, 2049, 600, 1000, INDEL, 3))
+    for what, N, P, ref_lo, alt_lo, alt_hi, strategy, reps in shapes:
+        args = [torch.from_numpy(a).to(dev) for a in sw_batch(N, P, ref_lo, alt_lo, alt_hi, 7)]
+        indel = strategy == INDEL
+
+        def kernel(i):
+            return sw_cuda.sw_forward(*args, *SW_GATK, indel_boundary=indel)
+
+        def twin(i):
+            return sw_ops.sw_forward(*args, *SW_GATK, indel_boundary=indel, pack_bt=True)
+
+        k_out, t_out = kernel(0), twin(0)
+        bad = sw_cuda.in_range_mismatches(k_out, t_out, args[2], args[3])
+        if bad:
+            raise AssertionError(f"SW kernel vs twin, {what}: {bad} in-range cells differ")
+        ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(twin, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt_host = k_out[0].cpu()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        cells = int((args[2].to(torch.int64) * args[3].to(torch.int64)).sum())
+        log(what.split()[0] + " sw_kernel_vs_twin", shape=f"N{N}_M{args[1].shape[0]}_P{P}",
+            strategy=strategy, in_range_mismatches=bad, kernel_ms=ms, twin_ms=plain_ms,
+            kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6,
+            bt_bytes=bt_host.numel(), bt_copy_ms=copy_ms,
+            bt_copy_gb_per_s=bt_host.numel() / copy_ms / 1e6)
+        del k_out, t_out, bt_host
+        if timing is None:
+            timing = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+
+    # pairs at the length limit, one thread of 33M cells each
+    rng = np.random.default_rng(8)
+    long_seq = BASES[rng.integers(0, 4, api_sw.MAX_SW_SEQUENCE_LENGTH)]
+    window = long_seq[20000:21000].copy()
+    mut = rng.random(1000) < 0.03
+    window[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    params = api_sw.SWParameters(*SW_GATK)
+    sw = api_sw.SmithWaterman()
+    for what, ref, alt in (("32767_ref_vs_1000_alt", long_seq, window),
+                           ("1000_ref_vs_32767_alt", window, long_seq)):
+        if not sw._device_eligible(len(ref), len(alt)):
+            raise AssertionError(f"{what} is not a device pair")
+        launches = sw_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        got = sw.align(ref, alt, params, api_sw.OverhangStrategy.SOFTCLIP)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = api_sw.sw_align_scalar_batch([ref], [alt], params, SOFTCLIP)[0]
+        scalar_s = time.perf_counter() - t0
+        log("7c sw_length_limit", pair=what, launches=sw_cuda.LAUNCHES - launches,
+            device_wall_s=wall, scalar_s=scalar_s, cigar_len=len(got.cigar),
+            offset=got.alignment_offset)
+        if sw_cuda.LAUNCHES != launches + 1:
+            raise AssertionError(f"{what}: the kernel did not run")
+        if (got.cigar, got.alignment_offset) != (want.cigar, want.alignment_offset):
+            raise AssertionError(f"{what}: {got} != scalar {want}")
+    return timing
+
+
+def pdhmm_batch(R, H, P, seed):
+    """An indexed PDHMM batch of P lanes (one unique read and haplotype per
+    lane) as card tensors: reads are mutated haplotype windows, every 16th
+    a random read (deep); half the lanes carry a deletion event and a
+    quarter a PD SNP."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    hap = BASES[rng.integers(0, 4, (H, P))]
+    haplen = rng.integers(3 * H // 4, H + 1, P).astype(np.int32)
+    rslen = rng.integers(R // 2, R + 1, P).astype(np.int32)
+    read = np.resize(hap, (R, P)).copy()
+    mut = rng.random((R, P)) < 0.03
+    read[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    read[:, ::16] = BASES[rng.integers(0, 4, (R, len(range(0, P, 16))))]
+    quals = [rng.integers(18, 46, (R, P)), rng.integers(30, 46, (R, P)),
+             rng.integers(30, 46, (R, P)), np.full((R, P), 10)]
+    pd = np.zeros((H, P), np.uint8)
+    pd[H // 4, ::2] = 2
+    pd[H // 4 + 4, ::2] = 4
+    pd[H // 2, 1::4] = 1 | 16
+    lanes = np.arange(P, dtype=np.int32)
+    arrays = dict(hap_u=hap, happd_u=pd,
+                  readq_u=np.stack([read] + [q.astype(np.uint8) for q in quals]),
+                  ridx=lanes, hidx=lanes, haplen=haplen, rslen=rslen)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda") for k, v in arrays.items()}
+
+
+def compare_pdhmm(k_raw, t_raw, what):
+    """Kernel vs twin raw f32 results: every value finite, the same lanes
+    below MIN_ACCEPTED, and the others within TOL_IN_RANGE in log10.
+    Returns (max |log10 diff|, lanes below)."""
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+
+    k, t = k_raw.cpu().numpy(), t_raw.cpu().numpy()
+    for name, x in (("kernel", k), ("twin", t)):
+        if not np.isfinite(x).all():
+            raise AssertionError(f"PDHMM {what}: {int((~np.isfinite(x)).sum())} non-finite "
+                                 f"{name} results")
+    below_k, below_t = k < MIN_ACCEPTED, t < MIN_ACCEPTED
+    if (below_k != below_t).any():
+        raise AssertionError(f"PDHMM {what}: {int((below_k != below_t).sum())} lanes are "
+                             f"below MIN_ACCEPTED in one engine only")
+    ok = ~below_t
+    err = float(np.abs(np.log10(k[ok].astype(np.float64))
+                       - np.log10(t[ok].astype(np.float64))).max())
+    if not err <= TOL_IN_RANGE:
+        raise AssertionError(f"PDHMM {what}: max |log10 diff| = {err:.3e}")
+    return err, int(below_t.sum())
+
+
+def phase_pdhmm_kernel_vs_twin():
+    import torch
+
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    timing = None
+    for what, R, H, P, reps in (("8a corpus", 256, 448, 8192, 5),
+                                ("8b long_reads", 1024, 512, 512, 3)):
+        t = pdhmm_batch(R, H, P, seed=11)
+        err, below = compare_pdhmm(pdhmm_cuda.pdhmm(**t),
+                                   pdhmm_cuda.pdhmm_indexed_reference(**t), what)
+        ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm(**t), reps)
+        plain_ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm_indexed_reference(**t), 1)
+        cells = int((t["haplen"].to(torch.int64) * t["rslen"].to(torch.int64)).sum())
+        log(what.split()[0] + " pdhmm_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}",
+            max_abs_log10_err=err, lanes_below_min_accepted=below, kernel_ms=ms,
+            twin_ms=plain_ms, kernel_gcells_per_s=cells / ms / 1e6,
+            twin_gcells_per_s=cells / plain_ms / 1e6)
+        if timing is None:
+            timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        timing["max_abs_err"] = max(timing["max_abs_err"], err)
+    return timing
+
+
+def flat_pdhmm(cases):
+    """The flat (batch, maxLen) arrays of ``PDHMM.compute_pdhmm``."""
+    hl = np.array([len(c.hap) for c in cases])
+    rl = np.array([len(c.read) for c in cases])
+    hap = np.zeros((len(cases), hl.max()), np.uint8)
+    pd = np.zeros_like(hap)
+    planes = [np.zeros((len(cases), rl.max()), np.uint8) for _ in range(5)]
+    for i, c in enumerate(cases):
+        hap[i, :hl[i]], pd[i, :hl[i]] = c.hap, c.hap_pd
+        for plane, v in zip(planes, (c.read, c.q, c.iq, c.dq, c.gcp)):
+            plane[i, :rl[i]] = v
+    return (hap, pd, *planes, hl, rl)
+
+
+def phase_pdhmm_golden():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import golden
+
+    from gkl_tpu_torch import PDHMM, PDHMMNativeArguments
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    for name in ("pdhmm_syn_990_1_2.txt", "pdhmm_syn_199_68_51.txt",
+                 "pdhmm_syn_1412_129_223.txt"):
+        cases = golden.load_pdhmm_cases(name)
+        for dbl in (False, True):
+            launches = pdhmm_cuda.LAUNCHES
+            got = PDHMM(PDHMMNativeArguments(use_double_precision=dbl)).compute_pdhmm(
+                *flat_pdhmm(cases))
+            err = float(np.abs(got - np.array([c.expected for c in cases])).max())
+            log("9 pdhmm_golden", file=name, double=dbl, cases=len(cases), max_abs_err=err,
+                launches=pdhmm_cuda.LAUNCHES - launches)
+            if err > TOL_ORACLE:
+                raise AssertionError(f"PDHMM golden {name} (double={dbl}): {err:.3e}")
+            if (pdhmm_cuda.LAUNCHES == launches) != dbl:
+                raise AssertionError(f"PDHMM golden {name}: kernel launches do not fit the mode")
+
+
+def region_haplotypes(records):
+    from gkl_tpu_torch import HaplotypeData, PDHaplotypeData
+
+    haps = [HaplotypeData(records[i].seq) for i in (0, 1, 2, 3)]
+    pd0 = np.zeros(len(records[0].seq), np.uint8)
+    pd0[10] = 2  # DEL_START
+    pd0[13] = 4  # DEL_END
+    pd_haps = [PDHaplotypeData(records[0].seq, haplotype_pdbases=pd0),
+               PDHaplotypeData(records[1].seq,
+                               haplotype_pdbases=np.zeros(len(records[1].seq), np.uint8))]
+    return haps, pd_haps
+
+
+def region_golden():
+    """The columns of ``tests/data/region_golden.txt``: names, best
+    haplotypes, offsets, CIGARs, likelihoods (n, 4), PD likelihoods (n, 2)."""
+    names, bests, offs, cigars, liks, pdliks = [], [], [], [], [], []
+    with open(os.path.join(DATA, "region_golden.txt")) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                continue
+            p = line.split()
+            names.append(p[0])
+            bests.append(int(p[1]))
+            offs.append(int(p[2]))
+            cigars.append(p[3])
+            liks.append([float(v) for v in p[4:8]])
+            pdliks.append([float(v) for v in p[8:10]])
+    return names, bests, offs, cigars, np.array(liks), np.array(pdliks)
+
+
+def check_region_sample(reads, sample, lik, cigars, offsets, best, pd_lik, haps, pd_haps):
+    """``check_corpus``'s oracle legs on the sampled reads: PairHMM and
+    PDHMM against their f64 oracles at TOL_ORACLE, SW CIGAR and offset
+    against the native scalar aligner.  Returns (PairHMM err, PDHMM err,
+    SW reads checked)."""
+    from gkl_tpu_torch import api_sw
+    from gkl_tpu_torch.ops import pdhmm_ref
+
+    nh = len(haps)
+    exact = oracle([haps[j] for _ in sample for j in range(nh)],
+                   [reads[i] for i in sample for _ in range(nh)]).reshape(len(sample), nh)
+    err = float(np.abs(lik[sample] - exact).max())
+    sw_want = api_sw.sw_align_scalar_batch(
+        [haps[best[i]] for i in sample], [reads[i].read_bases for i in sample],
+        api_sw.SWParameters(*SW_GATK), SOFTCLIP)
+    for i, w in zip(sample, sw_want):
+        if (cigars[i], int(offsets[i])) != (w.cigar, w.alignment_offset):
+            raise AssertionError(f"SW read {i}: {cigars[i]} {offsets[i]} != scalar "
+                                 f"{w.cigar} {w.alignment_offset}")
+    pd_exact = pdhmm_ref.pdhmm_scalar_batch(
+        [h for _ in sample for h, _ in pd_haps], [p for _ in sample for _, p in pd_haps],
+        [reads[i].read_bases for i in sample for _ in pd_haps],
+        [(reads[i].read_quals, reads[i].insertion_gop, reads[i].deletion_gop,
+          reads[i].overall_gcp) for i in sample for _ in pd_haps]).reshape(len(sample), -1)
+    pd_err = float(np.abs(pd_lik[sample] - pd_exact).max())
+    for name, e in (("PairHMM", err), ("PDHMM", pd_err)):
+        if not e < TOL_ORACLE:
+            raise AssertionError(f"{name} sample vs f64 oracle: max |err| = {e:.3e}")
+    for name, x in (("PairHMM", lik), ("PDHMM", pd_lik)):
+        if not (np.isfinite(x).all() and (x <= 1e-9).all()):
+            raise AssertionError(f"non-finite or positive {name} likelihoods")
+    return err, pd_err, len(sample)
+
+
+def phase_region():
+    from gkl_tpu_torch import bam, pipeline
+
+    path = os.path.join(DATA, "HiSeq.1mb.1RG.2k_lines.bam")
+    _, records = bam.read_bam(path, limit=8)
+    haps, pd_haps = region_haplotypes(records)
+    res = pipeline.region_bam(path, haps, pd_haplotypes=pd_haps, limit=24, chunk_reads=8)
+    names, bests, offs, cigars, liks, pdliks = region_golden()
+    if (res.read_names, list(res.best_haplotype), list(res.offsets), res.cigars) != \
+            (names, bests, offs, cigars):
+        raise AssertionError("region names, best haplotypes, offsets or CIGARs differ "
+                             "from the golden snapshot")
+    err = float(np.abs(res.likelihoods - liks).max())
+    pd_err = float(np.abs(res.pd_likelihoods - pdliks).max())
+    log("10 region_golden", reads=len(names), columns_exact=4, lik_max_abs_err=err,
+        pd_lik_max_abs_err=pd_err)
+    if err > TOL_IN_RANGE or pd_err > TOL_ORACLE:
+        raise AssertionError(f"region golden: {err:.3e} / {pd_err:.3e}")
+
+    # the whole BAM, a sample of every 16th read against the oracles
+    t0 = time.perf_counter()
+    res = pipeline.region_bam(path, haps, pd_haplotypes=pd_haps)
+    wall = time.perf_counter() - t0
+    _, records = bam.read_bam(path)
+    kept = [r for r in records if not pipeline._is_filtered(r) and len(r.seq)]
+    if [r.name for r in kept] != res.read_names:
+        raise AssertionError("region_bam dropped or reordered reads")
+    reads = pipeline.reads_from_records(kept)
+    sample = list(range(0, len(reads), 16))
+    err, pd_err, n_sw = check_region_sample(
+        reads, sample, res.likelihoods, res.cigars, res.offsets, res.best_haplotype,
+        res.pd_likelihoods, [h.haplotype_bases for h in haps],
+        [(h.haplotype_bases, h.haplotype_pdbases) for h in pd_haps])
+    log("10 region_whole_bam", reads=len(reads), wall_s=wall, sampled_reads=len(sample),
+        pairhmm_max_abs_err=err, pdhmm_max_abs_err=pd_err, sw_reads_exact=n_sw)
+
+
+def region_corpus():
+    """The full-size corpus as the public calls take it."""
+    from gkl_tpu_torch import HaplotypeData, PDHaplotypeData
+
+    haps, reads, deep, pd_pairs = active_region()
+    return dict(haps=haps, deep=deep, pd_pairs=pd_pairs, rd=to_read_data(reads),
+                hd=[HaplotypeData(h) for h in haps],
+                pdd=[PDHaplotypeData(h, haplotype_pdbases=p) for h, p in pd_pairs])
+
+
+def run_region(c, hmm, sw, pdhmm):
+    """region_stream's three calls, in its order, once on corpus ``c``.
+    Returns the outputs and each stage's wall seconds."""
+    import torch
+
+    from gkl_tpu_torch import SWParameters
+    from gkl_tpu_torch.api_sw import OverhangStrategy
+
+    nr = len(c["rd"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lik = hmm.compute_likelihoods(c["rd"], c["hd"]).reshape(nr, len(c["hd"]))
+    t1 = time.perf_counter()
+    best = np.argmax(lik, axis=1)
+    aligned = sw.align_batch([c["haps"][b] for b in best], [r.read_bases for r in c["rd"]],
+                             SWParameters(*SW_GATK), OverhangStrategy.SOFTCLIP)
+    t2 = time.perf_counter()
+    pd_lik = pdhmm.compute_likelihoods(c["rd"], c["pdd"]).reshape(nr, len(c["pdd"]))
+    t3 = time.perf_counter()
+    return (lik, best, aligned, pd_lik), (t1 - t0, t2 - t1, t3 - t2)
+
+
+def phase_region_corpus():
+    """The main path: region_stream's three calls on the full-size corpus,
+    three times; launches and stage times are read around each run.  The
+    first run's outputs are checked against the oracles, and each SW and
+    PDHMM launch it made is held against the twin on the same tensors."""
+    from gkl_tpu_torch import PDHMM, PairHMM, SmithWaterman, profiling
+    from gkl_tpu_torch.ops import pairhmm_cuda, pdhmm_cuda, sw_cuda
+    from gkl_tpu_torch.ops import sw as sw_ops
+
+    c = region_corpus()
+    nr = len(c["rd"])
+    engines = (PairHMM(), SmithWaterman(), PDHMM())
+    real_sw, real_pd = sw_cuda.sw_forward, pdhmm_cuda.pdhmm
+    calls = {"sw_forward": [], "pdhmm": []}
+
+    def recording_sw(*args, **kw):
+        out = real_sw(*args, **kw)
+        calls["sw_forward"].append((args, kw, out))
+        return out
+
+    def recording_pd(**t):
+        out = real_pd(**t)
+        calls["pdhmm"].append((t, out))
+        return out
+
+    os.environ.pop("GKL_TPU_RESCUE", None)
+    os.environ["GKL_TPU_METRICS"] = "1"
+    runs = []
+    for k in range(3):
+        profiling.METRICS.reset()
+        pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+        if k == 0:
+            sw_cuda.sw_forward, pdhmm_cuda.pdhmm = recording_sw, recording_pd
+        try:
+            outputs, (pairhmm_s, sw_s, pdhmm_s) = run_region(c, *engines)
+        finally:
+            sw_cuda.sw_forward, pdhmm_cuda.pdhmm = real_sw, real_pd
+        m = profiling.METRICS.snapshot()
+        runs.append(dict(
+            outputs=outputs,
+            launches={"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
+                      "pdhmm": pdhmm_cuda.LAUNCHES},
+            pairhmm_s=pairhmm_s, sw_s=sw_s, pdhmm_s=pdhmm_s,
+            wall_s=pairhmm_s + sw_s + pdhmm_s,
+            pairhmm_rescued=m.get("pairhmm_rescue", {}).get("items", 0),
+            sw_bt_bytes=m.get("sw_bt_copy", {}).get("items", 0),
+            sw_bt_copy_s=m.get("sw_bt_copy", {}).get("seconds", 0.0),
+            sw_host_walk_s=m.get("sw_host_walk", {}).get("seconds", 0.0),
+            pdhmm_rescued=m.get("pdhmm_rescue", {}).get("items", 0),
+            pdhmm_rescue_s=m.get("pdhmm_rescue", {}).get("seconds", 0.0)))
+    os.environ.pop("GKL_TPU_METRICS")
+    launches = runs[0]["launches"]
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path did not run: {launches}")
+
+    # the first run's own SW and PDHMM launches against the twins
+    for name in calls:
+        if len(calls[name]) != launches[name]:
+            raise AssertionError(f"{len(calls[name])} {name} calls recorded for "
+                                 f"{launches[name]} launches")
+    for args, kw, k_out in calls.pop("sw_forward"):
+        ref, alt, reflen, altlen = args[:4]
+        bad = sw_cuda.in_range_mismatches(
+            k_out, sw_ops.sw_forward(*args, **kw, pack_bt=True), reflen, altlen)
+        log("11 region_kernel_vs_twin", kernel="sw_forward",
+            shape=f"N{ref.shape[0]}_M{alt.shape[0]}_P{ref.shape[1]}",
+            in_range_mismatches=bad)
+        if bad:
+            raise AssertionError(f"SW kernel vs twin on the main path: {bad} cells differ")
+    pd_err = 0.0
+    for t, k_raw in calls.pop("pdhmm"):
+        shape = (f"R{t['readq_u'].shape[1]}_H{t['hap_u'].shape[0]}_P{t['ridx'].shape[0]}"
+                 f"_unique_reads{t['readq_u'].shape[2]}_unique_haps{t['hap_u'].shape[1]}")
+        err, below = compare_pdhmm(k_raw, pdhmm_cuda.pdhmm_indexed_reference(**t),
+                                   f"main path {shape}")
+        log("11 region_kernel_vs_twin", kernel="pdhmm", shape=shape,
+            max_abs_log10_err=err, lanes_below_min_accepted=below)
+        pd_err = max(pd_err, err)
+
+    lik, best, aligned, pd_lik = runs[0]["outputs"]
+    sample = sorted(set(range(0, nr, 16)) | set(np.nonzero(c["deep"])[0].tolist()))
+    err, pd_oracle_err, n_sw = check_region_sample(
+        c["rd"], sample, lik, [a.cigar for a in aligned], [a.alignment_offset for a in aligned],
+        best, pd_lik, c["haps"], c["pd_pairs"])
+    med = {k: float(np.median([r[k] for r in runs])) for k in
+           ("wall_s", "pairhmm_s", "sw_s", "pdhmm_s", "sw_bt_copy_s", "sw_host_walk_s",
+            "pdhmm_rescue_s")}
+    log("11 region_corpus", reads=nr, haplotypes=len(c["hd"]), pd_haplotypes=len(c["pdd"]),
+        **{f"launches_{k}": v for k, v in launches.items()},
+        **{f"{k}_median_of_3": v for k, v in med.items()},
+        reads_per_s_median=nr / med["wall_s"],
+        pairhmm_rescued_lanes=runs[0]["pairhmm_rescued"],
+        pdhmm_lanes=nr * len(c["pdd"]), pdhmm_rescued_lanes=runs[0]["pdhmm_rescued"],
+        sw_bt_bytes=runs[0]["sw_bt_bytes"], oracle_sample_reads=len(sample),
+        pairhmm_max_abs_err=err, pdhmm_max_abs_err=pd_oracle_err, sw_reads_exact=n_sw)
+    if n_sw < 640:
+        raise AssertionError(f"only {n_sw} SW reads checked")
+    return launches, pd_err
+
+
+def phase_profile():
+    """``--profile``: the main path once to warm up, then once under
+    ``torch.profiler``: each stage's wall time, the card's busy time (the
+    union of its kernel and copy intervals), its idle share of the wall
+    time, and device time by kernel or copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gkl_tpu_torch import PDHMM, PairHMM, SmithWaterman
+
+    c = region_corpus()
+    engines = (PairHMM(), SmithWaterman(), PDHMM())
+    run_region(c, *engines)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, stages = run_region(c, *engines)
+    wall = sum(stages)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + e - s)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    print(json.dumps({"profile": {
+        "wall_s": wall, "stages_s": {"pairhmm": stages[0], "sw": stages[1],
+                                     "pdhmm": stages[2]},
+        "device_busy_s": busy_us / 1e6, "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_ops": [{"name": name[:80], "count": n, "ms": us / 1e3}
+                       for name, (n, us) in top]}}), flush=True)
+
+
+def main(argv) -> int:
     sys.path.insert(0, ROOT)
     phase_device()
     import torch
 
     phase_build()
+    if argv == ["--profile"]:
+        phase_profile()
+        return 0
+    if argv:
+        raise SystemExit(f"usage: {sys.argv[0]} [--profile]")
     timing = phase_kernel_vs_twin()
     phase_golden()
     phase_bam_pipeline()
-    launches, path_err = phase_active_region()
+    _, path_err = phase_active_region()
     timing["max_abs_err"] = max(timing["max_abs_err"], path_err)
     phase_long_pairs()
+    sw_timing = phase_sw_kernel_vs_twin()
+    pd_timing = phase_pdhmm_kernel_vs_twin()
+    phase_pdhmm_golden()
+    phase_region()
+    launches, path_err = phase_region_corpus()
+    pd_timing["max_abs_err"] = max(pd_timing["max_abs_err"], path_err)
+    kernels = [
+        ("pairhmm_scaled", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
+        ("sw_forward", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
+        ("pdhmm", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "pairhmm_scaled", "route": "cuda",
-        "source": "gkl_tpu_torch/csrc/pairhmm_scaled.cu",
-        "replaces": "gkl_tpu/ops/pairhmm_pallas.py:69",
-        "launches": launches, **timing}]}), flush=True)
+        "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces, "launches": launches[name], **t}
+        for name, replaces, t in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -490,4 +1020,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

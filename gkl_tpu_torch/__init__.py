@@ -1,11 +1,13 @@
 """gkl_tpu_torch — the PyTorch and CUDA port of gkl_tpu.
 
-The PairHMM forward likelihood on an NVIDIA Hopper GPU: the public names of
-``gkl_tpu``'s PairHMM surface, backed by a hand-written CUDA kernel
-(``csrc/pairhmm_scaled.cu``) with a plain PyTorch twin for CPU tensors, the
-host f64 rescue on the JAX package's native oracle (compiled by path), and
-the BAM streaming pipeline.  Module names mirror ``gkl_tpu``'s.  This
-package imports neither JAX nor ``gkl_tpu``.
+The active-region kernels of GATK on an NVIDIA Hopper GPU, under the public
+names of ``gkl_tpu``: the PairHMM forward likelihood, Smith-Waterman
+realignment and the PDHMM forward likelihood, each backed by a hand-written
+CUDA kernel (``csrc/*.cu``) with a plain PyTorch twin for CPU tensors; the
+host f64 rescues and the CIGAR walk on the JAX package's native C++
+(compiled by path); and the BAM streaming and region pipelines.  Module
+names mirror ``gkl_tpu``'s.  This package imports neither JAX nor
+``gkl_tpu``.
 """
 
 from .api import (
@@ -17,18 +19,35 @@ from .api import (
     PendingLikelihoods,
     ReadData,
 )
+from .api_pdhmm import (
+    PDHMM,
+    KernelLevel,
+    ParallelSetting,
+    PDHaplotypeData,
+    PDHMMNativeArguments,
+)
+from .api_sw import OverhangStrategy, SmithWaterman, SWAlignerResult, SWParameters
 from .context import MIN_ACCEPTED
 
 __version__ = "0.1.0"
 
 __all__ = [
     "HaplotypeData",
+    "KernelLevel",
+    "OverhangStrategy",
+    "PDHMM",
+    "PDHMMNativeArguments",
+    "PDHaplotypeData",
     "PairHMM",
     "PairHMMFpga",
     "PairHMMNativeArguments",
     "PairHMMOMP",
     "PendingLikelihoods",
+    "ParallelSetting",
     "ReadData",
+    "SWAlignerResult",
+    "SWParameters",
+    "SmithWaterman",
     "MIN_ACCEPTED",
     "__version__",
 ]

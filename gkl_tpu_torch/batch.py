@@ -1,6 +1,6 @@
 """Batch planning: padding/bucketing variable-length pairs into fixed shapes.
 
-Counterpart of ``gkl_tpu/batch.py`` (PairHMM part).  Lengths pad to a small
+Counterpart of ``gkl_tpu/batch.py``.  Lengths pad to a small
 ladder of buckets so one kernel launch serves a whole shape class; the
 arrays are (length, lane) so neighbouring lanes sit at neighbouring
 addresses, which is what the CUDA kernel's one-thread-per-lane loads want.
@@ -180,6 +180,67 @@ def pack_pairs_indexed(
                               ridx, hidx, haplen, rslen, n)
 
 
+@dataclasses.dataclass
+class PackedPDHMMIndexed:
+    """PDHMM batch with deduplicated planes + per-pair indices.
+
+    The object path (``api_pdhmm.PDHMM.compute_likelihoods``) appends the
+    same array objects for every cross-product pair, so unique haplotype
+    planes (bases, PD bytes, column states) and unique read planes (bases
+    and 4 quality planes) go to the device once and the kernel gathers each
+    lane's columns: ``3H*nu_h + 5R*nu_r`` bytes instead of ``(3H + 5R)*n``.
+    """
+
+    hap_u: np.ndarray  # (H, nu_h) uint8
+    happd_u: np.ndarray  # (H, nu_h) uint8 — PD bytes
+    states_u: np.ndarray  # (H, nu_h) uint8 — ops.pdhmm.column_states(happd_u)
+    readq_u: np.ndarray  # (5, R, nu_r) uint8 [bases, q, iq, dq, gcp]
+    ridx: np.ndarray  # (P,) int32
+    hidx: np.ndarray  # (P,) int32
+    haplen: np.ndarray  # (P,) int32
+    rslen: np.ndarray  # (P,) int32
+    n_real: int
+
+
+def pack_pdhmm_indexed(
+    uhaps: Sequence[np.ndarray],
+    uhap_pds: Sequence[np.ndarray],
+    ureads: Sequence[np.ndarray],
+    uread_quals: Sequence[tuple],
+    ridx: Sequence[int],
+    hidx: Sequence[int],
+    *,
+    lane_multiple: int = LANE_MULTIPLE,
+    qual_fill: int = 40,
+) -> PackedPDHMMIndexed:
+    """Pack unique haplotype/read planes plus per-pair index vectors.
+
+    ``ridx``/``hidx`` map each real pair lane to its unique read /
+    haplotype column (deduplication is the caller's)."""
+    from .ops.pdhmm import column_states
+
+    H = bucket_length(max(len(h) for h in uhaps))
+    R = bucket_length(max(len(r) for r in ureads))
+    nu_h = bucket_lanes(len(uhaps), 8)
+    nu_r = bucket_lanes(len(ureads), 8)
+    hap_u = _pad_columns(uhaps, H, nu_h, 0)
+    happd_u = _pad_columns(uhap_pds, H, nu_h, 0)
+    readq_u = np.stack([_pad_columns(ureads, R, nu_r, 0)] + [
+        _pad_columns([qs[k] for qs in uread_quals], R, nu_r, qual_fill) for k in range(4)])
+    n = len(ridx)
+    P = bucket_lanes(n, lane_multiple)
+    ridx_p = np.zeros(P, np.int32)
+    hidx_p = np.zeros(P, np.int32)
+    ridx_p[:n] = np.asarray(ridx, np.int32)
+    hidx_p[:n] = np.asarray(hidx, np.int32)
+    haplen = np.ones(P, np.int32)
+    rslen = np.ones(P, np.int32)
+    haplen[:n] = np.array([len(h) for h in uhaps], np.int32)[hidx_p[:n]]
+    rslen[:n] = np.array([len(r) for r in ureads], np.int32)[ridx_p[:n]]
+    return PackedPDHMMIndexed(hap_u, happd_u, column_states(happd_u), readq_u,
+                              ridx_p, hidx_p, haplen, rslen, n)
+
+
 def group_by_bucket(haps: Sequence[np.ndarray], reads: Sequence[np.ndarray]):
     """Group pair indices by (R-bucket, H-bucket) shape class."""
     groups: dict[tuple[int, int], list[int]] = {}
@@ -189,10 +250,18 @@ def group_by_bucket(haps: Sequence[np.ndarray], reads: Sequence[np.ndarray]):
     return groups
 
 
-def from_reference(packed) -> PackedPairs | PackedPairsIndexed:
+def from_reference(packed) -> PackedPairs | PackedPairsIndexed | PackedPDHMMIndexed:
     """The port's dataclass for a batch packed by another implementation
-    (the JAX package's ``PackedPairs``/``PackedPairsIndexed``), read by its
-    numpy fields, so that both engines can run one identical batch."""
+    (the JAX package's ``PackedPairs``, ``PackedPairsIndexed`` and
+    ``PackedPDHMMIndexed``), read by its numpy fields, so that both engines
+    can run one identical batch."""
+    if hasattr(packed, "happd_u"):
+        return PackedPDHMMIndexed(
+            *(np.asarray(getattr(packed, f), np.uint8)
+              for f in ("hap_u", "happd_u", "states_u", "readq_u")),
+            *(np.asarray(getattr(packed, f), np.int32)
+              for f in ("ridx", "hidx", "haplen", "rslen")),
+            n_real=int(packed.n_real))
     if hasattr(packed, "ridx"):
         return PackedPairsIndexed(
             hap_u=np.asarray(packed.hap_u, np.uint8),

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Every ``gkl_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-ctypes.  No PyTorch header is included, so the build takes seconds.  The
-library is cached in ``build/gkl_tpu_torch/`` by a hash of the sources and
-flags; a failed build raises :class:`native_lib.BuildError`.
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, loaded with ctypes.  No
+PyTorch header is included, so the build takes seconds.  The library is
+cached in ``build/gkl_tpu_torch/`` by a hash of the sources and flags; a
+failed build raises :class:`native_lib.BuildError`.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # contraction, so each product and sum rounds as in the plain version.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-ftz=true", "-fmad=false", "-Xptxas", "-v",
 ]
 
@@ -49,7 +50,6 @@ def nvcc_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gkl_pairhmm_scaled.restype = i32
     lib.gkl_pairhmm_scaled.argtypes = [
         vp, i32, i32,            # hap_u (H, nu_h)
         vp, i32, i32,            # readq_u (2, R, nu_r)
@@ -60,6 +60,27 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # out (3, P) i32: mantissa bits, exp2, flag
         vp,                      # cudaStream_t
     ]
+    lib.gkl_sw_forward.argtypes = [
+        vp, i32,                 # ref (N, P) u8; N
+        vp, i32,                 # alt (M, P) u8; M
+        vp, vp, i32,             # reflen, altlen (P,) i32; P
+        i32, i32, i32, i32,      # match, mismatch, open, extend
+        i32,                     # indel boundary (0/1)
+        vp, vp,                  # H, F (M, P) i32 scratch
+        vp, vp, vp,              # bt (N/2, M, P) u8, lastrow (M, P), lastcol (N, P) i32
+        vp,                      # cudaStream_t
+    ]
+    lib.gkl_pdhmm.argtypes = [
+        vp, vp, i32, i32,        # hap_u, happd_u (H, nu_h) u8
+        vp, i32, i32,            # readq_u (5, R, nu_r) u8
+        vp, vp, vp, vp, i32,     # ridx, hidx, haplen, rslen; P
+        vp, vp,                  # q2e (255,), match-to-match (32640,) f32
+        vp,                      # state (6, H, P) f32 scratch
+        vp,                      # out (P,) f32
+        vp,                      # cudaStream_t
+    ]
+    for fn in (lib.gkl_pairhmm_scaled, lib.gkl_sw_forward, lib.gkl_pdhmm):
+        fn.restype = i32
 
 
 def load() -> ctypes.CDLL:
@@ -72,7 +93,7 @@ def load() -> ctypes.CDLL:
             key = "".join(open(h).read() for h in headers)
             _path = native_lib.build_shared_library(
                 "gkl_tpu_torch_kernels", sources, [nvcc_path(), *NVCC_FLAGS],
-                key_extra=key)
+                link=["-shared"], key_extra=key, compile_each=True)
             lib = ctypes.CDLL(_path)
             _declare(lib)
             _lib = lib

@@ -25,8 +25,11 @@ _SRC = {
     "gkl_codec": ["codec.cc", "deflate_fast.cc", "inflate_fast.cc"],
     "gkl_bam": ["bam_scan.cc"],
     "gkl_pairhmm_oracle": ["pairhmm_oracle.cc"],
+    "gkl_sw_runtime": ["sw_runtime.cc"],
+    "gkl_pdhmm_oracle": ["pdhmm_oracle.cc"],
 }
-_LINK = {"gkl_codec": ["-lz"], "gkl_bam": [], "gkl_pairhmm_oracle": []}
+_LINK = {"gkl_codec": ["-lz"], "gkl_bam": [], "gkl_pairhmm_oracle": [],
+         "gkl_sw_runtime": [], "gkl_pdhmm_oracle": []}
 
 _cache: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -52,12 +55,15 @@ def _host_tag() -> str:
 
 
 def build_shared_library(name: str, sources: list[str], command: list[str],
-                         link: list[str] = (), key_extra: str = "") -> str:
+                         link: list[str] = (), key_extra: str = "",
+                         compile_each: bool = False) -> str:
     """Compile ``sources`` with ``command -o out sources link`` into
     ``BUILD_DIR`` unless a library built from the same sources and command
-    is already there; returns its path.  The compiler's messages are kept
-    beside it in ``<path>.log``.  A file lock serialises concurrent builds
-    by several processes; the output is renamed into place whole."""
+    is already there; returns its path.  With ``compile_each`` every source
+    is first compiled alone (``command -c``), all at once, and the objects
+    are linked.  The compiler's messages are kept beside the library in
+    ``<path>.log``.  A file lock serialises concurrent builds by several
+    processes; the output is renamed into place whole."""
     h = hashlib.sha256()
     h.update(" ".join([*command, *link]).encode())
     h.update(key_extra.encode())
@@ -73,13 +79,27 @@ def build_shared_library(name: str, sources: list[str], command: list[str],
         if os.path.exists(so_path):
             return so_path
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([*command, "-o", tmp, *sources, *link],
+        inputs, log = sources, ""
+        if compile_each:
+            inputs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+            procs = [subprocess.Popen([*command, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for o, s in zip(inputs, sources)]
+            outs = [p.communicate()[0] for p in procs]
+            log = "".join(outs)
+            for p, out in zip(procs, outs):
+                if p.returncode != 0:
+                    raise BuildError(f"build of {name} failed:\n{' '.join(p.args)}\n{out}")
+        proc = subprocess.run([*command, "-o", tmp, *inputs, *link],
                               capture_output=True, text=True)
+        if compile_each:
+            for o in inputs:
+                os.remove(o)
         if proc.returncode != 0:
             raise BuildError(f"build of {name} failed:\n{' '.join(proc.args)}\n"
                              f"{proc.stdout}{proc.stderr}")
         with open(so_path + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(log + proc.stdout + proc.stderr)
         os.replace(tmp, so_path)
     return so_path
 

@@ -1,6 +1,6 @@
-"""Streaming PairHMM pipeline: BAM blocks -> host codec -> batch planner -> GPU.
+"""Streaming pipelines: BAM blocks -> host codec -> batch planner -> GPU.
 
-Counterpart of the PairHMM part of ``gkl_tpu/pipeline.py``:
+Counterpart of ``gkl_tpu/pipeline.py`` (all but ``bam_recompress``):
 
 1. a producer thread inflates BGZF blocks on the native codec and decodes
    and filters records (``bam.read_bam_streaming``) into chunks on a
@@ -11,8 +11,15 @@ Counterpart of the PairHMM part of ``gkl_tpu/pipeline.py``:
 3. results resolve two chunks behind the dispatch, so chunk N's kernels
    run while chunk N+1 decodes and packs.
 
+:func:`region_stream` composes the three kernels of GATK's active-region
+flow on that stream: PairHMM, then Smith-Waterman realignment of each read
+against its best haplotype, then optionally PDHMM against partially
+determined haplotypes; :func:`sw_align_stream` realigns a BAM's reads
+against one reference window.
+
 Stage times land in ``profiling.METRICS`` (pipeline_wait,
-pipeline_dispatch, pipeline_resolve) when metrics are on.
+pipeline_dispatch, pipeline_resolve, pipeline_sw, pipeline_pdhmm) when
+metrics are on.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import numpy as np
 from . import bam as bam_mod
 from . import profiling
 from .api import HaplotypeData, PairHMM, ReadData
+from .api_pdhmm import PDHMM
+from .api_sw import OverhangStrategy, SmithWaterman, SWParameters
 
 MIN_BASE_QUAL = 6  # GATK clamps read quals below 6 (PairHmmUnitTest.java:317)
 
@@ -37,6 +46,24 @@ MIN_BASE_QUAL = 6  # GATK clamps read quals below 6 (PairHmmUnitTest.java:317)
 class ChunkResult:
     read_names: list[str]
     likelihoods: np.ndarray  # (n_reads, n_haplotypes) log10
+
+
+@dataclasses.dataclass
+class RegionChunkResult:
+    """One chunk of the composed active-region pipeline."""
+
+    read_names: list[str]
+    likelihoods: np.ndarray        # (n_reads, n_haps) PairHMM log10
+    best_haplotype: np.ndarray     # (n_reads,) argmax over haplotypes
+    cigars: list[str]              # SW realignment of read vs its best hap
+    offsets: np.ndarray            # (n_reads,) SW alignment offsets
+    pd_likelihoods: np.ndarray | None  # (n_reads, n_pd_haps) PDHMM log10
+
+
+# HaplotypeCaller's read-to-haplotype realignment scores
+# (SmithWatermanAlignmentConstants: match 200, mismatch -150, open -260,
+# extend -11)
+DEFAULT_SW_PARAMETERS = SWParameters(200, -150, -260, -11)
 
 
 def reads_from_records(records: Iterable[bam_mod.BamRecord],
@@ -61,6 +88,13 @@ def reads_from_records(records: Iterable[bam_mod.BamRecord],
         out.append(ReadData(read_bases=rec.seq, read_quals=q, insertion_gop=gop,
                             deletion_gop=gop, overall_gcp=gcp_cache[n]))
     return out
+
+
+def _is_filtered(rec: bam_mod.BamRecord) -> bool:
+    """Secondary, supplementary and unmapped records (GATK's
+    HaplotypeCaller read filters, approximated)."""
+    return bool(rec.flag & (bam_mod.FLAG_UNMAPPED | bam_mod.FLAG_SECONDARY
+                            | bam_mod.FLAG_SUPPLEMENTARY))
 
 
 def _chunk_producer(bam_path: str, *, chunk_reads: int, limit: int | None,
@@ -88,11 +122,7 @@ def _chunk_producer(bam_path: str, *, chunk_reads: int, limit: int | None,
                 bam_path, limit=limit, threads=threads)
             batch: list[bam_mod.BamRecord] = []
             for rec in record_iter:
-                if not include_filtered and rec.flag & (
-                    bam_mod.FLAG_UNMAPPED
-                    | bam_mod.FLAG_SECONDARY
-                    | bam_mod.FLAG_SUPPLEMENTARY
-                ):
+                if not include_filtered and _is_filtered(rec):
                     continue
                 if len(rec.seq) == 0:
                     # '*'-sequence records can never go through PairHMM
@@ -187,3 +217,150 @@ def pairhmm_bam(bam_path: str, haplotypes: Sequence[HaplotypeData],
         liks.append(chunk.likelihoods)
     return ChunkResult(names, np.concatenate(liks, axis=0) if liks
                        else np.zeros((0, len(haplotypes))))
+
+
+
+def sw_align_stream(bam_path: str, reference, parameters: SWParameters | None = None,
+                    strategy=None, *, chunk_reads: int = 512, limit: int | None = None,
+                    threads: int | None = None, sw: SmithWaterman | None = None):
+    """Stream a BAM's reads through the Smith-Waterman engine against one
+    reference window, yielding (read_names, [SWAlignerResult]) per chunk —
+    the assembly-region realignment pattern (reads re-aligned to an
+    assembled haplotype or reference with IntelSmithWaterman).  ``sw``
+    defaults to ``SmithWaterman()`` on CUDA."""
+    parameters = parameters or DEFAULT_SW_PARAMETERS
+    strategy = OverhangStrategy.SOFTCLIP if strategy is None else strategy
+    if isinstance(reference, (bytes, bytearray)):
+        reference = np.frombuffer(bytes(reference), np.uint8)
+    sw = sw or SmithWaterman()
+    _, record_iter = bam_mod.read_bam_streaming(bam_path, limit=limit, threads=threads)
+
+    def align(batch):
+        res = sw.align_batch([reference] * len(batch), [r.seq for r in batch],
+                             parameters, strategy)
+        return [r.name for r in batch], res
+
+    batch: list[bam_mod.BamRecord] = []
+    for rec in record_iter:
+        if _is_filtered(rec) or len(rec.seq) == 0:
+            continue
+        batch.append(rec)
+        if len(batch) >= chunk_reads:
+            yield align(batch)
+            batch = []
+    if batch:
+        yield align(batch)
+
+
+def region_stream(
+    bam_path: str,
+    haplotypes: Sequence[HaplotypeData],
+    *,
+    pd_haplotypes: Sequence | None = None,
+    sw_parameters: SWParameters | None = None,
+    sw_strategy=None,
+    chunk_reads: int = 1024,
+    limit: int | None = None,
+    include_filtered: bool = False,
+    hmm: PairHMM | None = None,
+    sw: SmithWaterman | None = None,
+    pdhmm: PDHMM | None = None,
+    threads: int | None = None,
+    prefetch: int = 3,
+) -> Iterator[RegionChunkResult]:
+    """The composed active-region pipeline: one BAM stream drives the three
+    kernels in the order of GATK's active-region flow:
+
+    1. PairHMM scores every read against every haplotype (dispatched
+       without waiting, resolved two chunks behind);
+    2. each read is Smith-Waterman realigned against its best-scoring
+       haplotype, giving CIGAR and offset;
+    3. with ``pd_haplotypes``, PDHMM scores the reads against the
+       partially determined haplotypes (DRAGEN-GATK's PDHMM mode).
+
+    Yields one RegionChunkResult per chunk.  The engines default to
+    ``PairHMM()``, ``SmithWaterman()`` and ``PDHMM()`` on CUDA.
+    """
+    hmm = hmm or PairHMM()
+    sw = sw or SmithWaterman()
+    haplotypes = list(haplotypes)
+    hap_seqs = [np.asarray(h.haplotype_bases, np.uint8) for h in haplotypes]
+    sw_parameters = sw_parameters or DEFAULT_SW_PARAMETERS
+    sw_strategy = OverhangStrategy.SOFTCLIP if sw_strategy is None else sw_strategy
+    if pd_haplotypes is not None:
+        pd_haplotypes = list(pd_haplotypes)
+        pdhmm = pdhmm or PDHMM()
+    q, stop = _chunk_producer(bam_path, chunk_reads=chunk_reads, limit=limit,
+                              include_filtered=include_filtered,
+                              threads=threads, prefetch=prefetch)
+    metrics_on = profiling.metrics_enabled()
+    nh = len(haplotypes)
+    pending: collections.deque = collections.deque()
+
+    def resolve(entry) -> RegionChunkResult:
+        records, reads, handle = entry
+        t0 = time.perf_counter()
+        lik = np.asarray(handle.result()).reshape(len(reads), nh)
+        t1 = time.perf_counter()
+        best = np.argmax(lik, axis=1)
+        aligned = sw.align_batch([hap_seqs[b] for b in best], [r.read_bases for r in reads],
+                                 sw_parameters, sw_strategy)
+        t2 = time.perf_counter()
+        pd_lik = None
+        if pd_haplotypes is not None:
+            pd_lik = np.asarray(pdhmm.compute_likelihoods(reads, pd_haplotypes)).reshape(
+                len(reads), len(pd_haplotypes))
+        if metrics_on:
+            profiling.METRICS.record("pipeline_resolve", items=len(reads), seconds=t1 - t0)
+            profiling.METRICS.record("pipeline_sw", items=len(reads), seconds=t2 - t1)
+            if pd_haplotypes is not None:
+                profiling.METRICS.record("pipeline_pdhmm", items=len(reads),
+                                         seconds=time.perf_counter() - t2)
+        return RegionChunkResult(
+            read_names=[r.name for r in records], likelihoods=lik, best_haplotype=best,
+            cigars=[a.cigar for a in aligned],
+            offsets=np.asarray([a.alignment_offset for a in aligned]),
+            pd_likelihoods=pd_lik)
+
+    try:
+        while True:
+            t0 = time.perf_counter()
+            kind, payload = q.get()
+            if metrics_on:
+                profiling.METRICS.record("pipeline_wait", items=1,
+                                         seconds=time.perf_counter() - t0)
+            if kind == "error":
+                raise payload
+            if kind == "done":
+                break
+            records = payload
+            t0 = time.perf_counter()
+            reads = reads_from_records(records)
+            handle = hmm.compute_likelihoods_async(reads, haplotypes)
+            if metrics_on:
+                profiling.METRICS.record("pipeline_dispatch", items=len(reads),
+                                         seconds=time.perf_counter() - t0)
+            pending.append((records, reads, handle))
+            while len(pending) > 2:
+                yield resolve(pending.popleft())
+        while pending:
+            yield resolve(pending.popleft())
+    finally:
+        stop.set()
+
+
+def region_bam(bam_path: str, haplotypes: Sequence[HaplotypeData],
+               **kw) -> RegionChunkResult:
+    """Non-streaming convenience: whole BAM -> one concatenated region result."""
+    chunks = list(region_stream(bam_path, haplotypes, **kw))
+    pd = [c.pd_likelihoods for c in chunks if c.pd_likelihoods is not None]
+    return RegionChunkResult(
+        read_names=[n for c in chunks for n in c.read_names],
+        likelihoods=(np.concatenate([c.likelihoods for c in chunks])
+                     if chunks else np.zeros((0, len(haplotypes)))),
+        best_haplotype=(np.concatenate([c.best_haplotype for c in chunks])
+                        if chunks else np.zeros((0,), np.int64)),
+        cigars=[g for c in chunks for g in c.cigars],
+        offsets=(np.concatenate([c.offsets for c in chunks])
+                 if chunks else np.zeros((0,), np.int64)),
+        pd_likelihoods=np.concatenate(pd) if pd else None)

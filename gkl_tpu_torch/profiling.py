@@ -2,6 +2,12 @@
 
 The public APIs record into :data:`METRICS` when ``GKL_TPU_METRICS=1``
 (off by default: a counter update per call is noise for small batches).
+Counters: ``pairhmm``, ``pairhmm_rescue``, ``smithwaterman``,
+``sw_bt_copy`` (items = backtrack bytes brought to the host),
+``sw_host_walk`` (items = lanes walked), ``pdhmm``, ``pdhmm_rescue``
+(items = lanes recomputed on the f64 oracle), and the pipeline stages
+``pipeline_wait``, ``pipeline_dispatch``, ``pipeline_resolve``,
+``pipeline_sw`` and ``pipeline_pdhmm``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card.  Every test here is marked ``gpu``
+"""The port's CUDA kernels on the card.  Every test here is marked ``gpu``
 and skips without a CUDA device.  The file imports neither JAX nor
 ``gkl_tpu``, so it also runs where JAX is absent: there, run it with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`` (the
@@ -145,3 +145,150 @@ def test_kernel_flags_malformed_lanes(cuda_device):
         pairhmm_cuda.pairhmm_scaled(**dev, const_quals=(45, 45, 10))))
     assert np.isfinite(mant[0]) and flag[0] >= 0
     assert np.isnan(mant[1:3]).all() and (flag[1:3] == -1).all()
+
+
+def _sw_batch(N, M, P, seed):
+    """Alts are mutated windows of their lane's reference; ragged lengths
+    up to N and M."""
+    rng = np.random.default_rng(seed)
+    ref = BASES[rng.integers(0, 4, (N, P))]
+    alt = np.resize(ref, (M, P)).copy()
+    mut = rng.random((M, P)) < 0.1
+    alt[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    reflen = rng.integers(N // 2, N + 1, P).astype(np.int32)
+    altlen = rng.integers(M // 2, M + 1, P).astype(np.int32)
+    return ref, alt, reflen, altlen
+
+
+@pytest.mark.parametrize("indel_boundary", [False, True])
+@pytest.mark.parametrize("N,M,P", [(64, 96, 64), (64, 320, 40), (2112, 48, 16)],
+                         ids=["tall", "alt_slab_regime", "past_2048_rows"])
+def test_sw_kernel_matches_twin(cuda_device, N, M, P, indel_boundary):
+    """The SW kernel equals its twin bit for bit on the region the host walk
+    reads, in the regimes of both TPU kernels it replaces: M past 256 (the
+    alt-slab kernel) and N past one 2048-row relay segment."""
+    from gkl_tpu_torch.ops import sw as sw_ops
+    from gkl_tpu_torch.ops import sw_cuda
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in _sw_batch(N, M, P, seed=N + M)]
+    launches = sw_cuda.LAUNCHES
+    got = sw_cuda.sw_forward(*args, 200, -150, -260, -11, indel_boundary=indel_boundary)
+    assert sw_cuda.LAUNCHES == launches + 1
+    want = sw_ops.sw_forward(*args, 200, -150, -260, -11, indel_boundary=indel_boundary,
+                             pack_bt=True)
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
+    assert sw_cuda.in_range_mismatches(got, want, args[2], args[3]) == 0
+
+
+def test_sw_api_on_card_matches_scalar(cuda_device):
+    """SmithWaterman on CUDA: the kernel runs and every strategy's CIGAR and
+    offset equal the native scalar aligner's."""
+    from gkl_tpu_torch import api_sw
+    from gkl_tpu_torch.ops import sw_cuda
+
+    rng = np.random.default_rng(3)
+    refs = [BASES[rng.integers(0, 4, int(rng.integers(20, 400)))] for _ in range(40)]
+    alts = []
+    for r in refs:
+        a = np.resize(r[int(rng.integers(0, len(r) // 2)):], int(rng.integers(10, 300))).copy()
+        mut = rng.random(len(a)) < 0.05
+        a[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+        alts.append(a)
+    params = api_sw.SWParameters(200, -150, -260, -11)
+    sw = api_sw.SmithWaterman(device=cuda_device)
+    for strategy in api_sw.OverhangStrategy:
+        launches = sw_cuda.LAUNCHES
+        got = sw.align_batch(refs, alts, params, strategy)
+        assert sw_cuda.LAUNCHES > launches
+        want = api_sw.sw_align_scalar_batch(refs, alts, params, int(strategy))
+        assert [(g.cigar, g.alignment_offset) for g in got] == \
+            [(w.cigar, w.alignment_offset) for w in want]
+
+
+def _pdhmm_batch(R, H, P, seed):
+    rng = np.random.default_rng(seed)
+    hap = BASES[rng.integers(0, 4, (H, P))]
+    read = np.resize(hap, (R, P)).copy()
+    mut = rng.random((R, P)) < 0.05
+    read[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    read[:, ::8] = BASES[rng.integers(0, 4, (R, len(range(0, P, 8))))]  # deep lanes
+    pd = np.zeros((H, P), np.uint8)
+    pd[H // 4, ::2], pd[H // 4 + 3, ::2], pd[H // 2, 1::4] = 2, 4, 1 | 8
+    quals = [rng.integers(18, 46, (R, P)), rng.integers(30, 46, (R, P)),
+             rng.integers(30, 46, (R, P)), np.full((R, P), 10)]
+    lanes = np.arange(P, dtype=np.int32)
+    arrays = dict(hap_u=hap, happd_u=pd,
+                  readq_u=np.stack([read] + [q.astype(np.uint8) for q in quals]),
+                  ridx=lanes, hidx=lanes,
+                  haplen=rng.integers(H // 2, H + 1, P).astype(np.int32),
+                  rslen=rng.integers(R // 2, R + 1, P).astype(np.int32))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("R,H,P", [(160, 192, 128), (640, 704, 32)],
+                         ids=["single_pass_regime", "chunked_regime"])
+def test_pdhmm_kernel_matches_twin(cuda_device, R, H, P):
+    """The PDHMM kernel against its twin, with PD events, in the regimes of
+    both TPU kernels it replaces (reads past the chunked kernel's 512 rows):
+    the same lanes below MIN_ACCEPTED, the others at 1e-5 in log10."""
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(R, H, P, seed=R).items()}
+    launches = pdhmm_cuda.LAUNCHES
+    got = pdhmm_cuda.pdhmm(**t).cpu().numpy()
+    assert pdhmm_cuda.LAUNCHES == launches + 1
+    want = pdhmm_cuda.pdhmm_indexed_reference(**t).cpu().numpy()
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    below = want < MIN_ACCEPTED
+    np.testing.assert_array_equal(got < MIN_ACCEPTED, below)
+    assert below.any() and (~below).any()
+    np.testing.assert_allclose(np.log10(got[~below].astype(np.float64)),
+                               np.log10(want[~below].astype(np.float64)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_double", [False, True])
+def test_pdhmm_golden_on_card(cuda_device, use_double):
+    from gkl_tpu_torch import PDHMM, PDHMMNativeArguments
+
+    cases = golden.load_pdhmm_cases("pdhmm_syn_199_68_51.txt")
+    hmm = PDHMM(PDHMMNativeArguments(use_double_precision=use_double), device=cuda_device)
+    got = hmm._compute_pairs([c.hap for c in cases], [c.hap_pd for c in cases],
+                             [c.read for c in cases],
+                             [(c.q, c.iq, c.dq, c.gcp) for c in cases])
+    np.testing.assert_allclose(got, [c.expected for c in cases], rtol=0, atol=1e-4)
+
+
+def test_pdhmm_pallas_level_runs_on_card(cuda_device):
+    """KernelLevel.PALLAS runs the kernel on a CUDA device."""
+    from gkl_tpu_torch import PDHMM, KernelLevel, PDHaplotypeData, PDHMMNativeArguments
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    hap = np.resize(BASES, 40)
+    rd = [ReadData(hap[3:30], np.full(27, 30, np.uint8), *(np.full(27, v, np.uint8)
+                                                           for v in (45, 45, 10)))]
+    launches = pdhmm_cuda.LAUNCHES
+    got = PDHMM(PDHMMNativeArguments(kernel_level=KernelLevel.PALLAS),
+                device=cuda_device).compute_likelihoods(
+        rd, [PDHaplotypeData(hap, haplotype_pdbases=np.zeros(40, np.uint8))])
+    assert pdhmm_cuda.LAUNCHES == launches + 1 and np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("kernel", ["sw_forward", "pdhmm"])
+def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kernel):
+    """With no kernel to build, the SW and PDHMM wrappers raise on CUDA
+    tensors and never fall back to their twins."""
+    from gkl_tpu_torch.ops import pdhmm_cuda, sw_cuda
+
+    def no_kernel():
+        raise native_lib.BuildError("no kernel built")
+
+    monkeypatch.setattr(cuda_build, "load", no_kernel)
+    if kernel == "sw_forward":
+        args = [torch.from_numpy(a).to(cuda_device) for a in _sw_batch(8, 8, 8, seed=0)]
+        with pytest.raises(native_lib.BuildError):
+            sw_cuda.sw_forward(*args, 1, -1, -2, -1, indel_boundary=False)
+    else:
+        t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(8, 8, 8, seed=0).items()}
+        with pytest.raises(native_lib.BuildError):
+            pdhmm_cuda.pdhmm(**t)

@@ -95,12 +95,17 @@ def test_stream_abandoned_producer_terminates():
 
 
 def test_chip_smoke_region_is_the_validation_corpus(tmp_path):
-    """chip_smoke's active region (numpy only, no JAX) draws the same reads
-    and haplotypes as validation.build_corpus."""
+    """chip_smoke's active region (numpy only, no JAX) draws the same reads,
+    haplotypes and PD haplotypes as validation.build_corpus."""
     corpus = validation.build_corpus(str(tmp_path / "c.bam"), n_reads=130)
-    haps, reads, deep = chip_smoke.active_region(n_reads=130)
+    haps, reads, deep, pd_haps = chip_smoke.active_region(n_reads=130)
     for h, jh in zip(haps, corpus.haplotypes):
         np.testing.assert_array_equal(h, jh.haplotype_bases)
+    assert len(pd_haps) == len(corpus.pd_haplotypes) == 4
+    for (h, pd), jh in zip(pd_haps, corpus.pd_haplotypes):
+        np.testing.assert_array_equal(h, jh.haplotype_bases)
+        np.testing.assert_array_equal(pd, jh.haplotype_pdbases)
+    assert any(pd.any() for _, pd in pd_haps)
     _, records = bam.read_bam(corpus.bam_path)
     assert len(records) == len(reads) == 130
     for (seq, qual), rec in zip(reads, records):
