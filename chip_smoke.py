@@ -6,7 +6,7 @@ CUDA card of compute capability 9.0 (Hopper); without one it exits nonzero
 before printing any result.  Phases, one line each (or a few):
 
 0. device: name and power limit, torch and CUDA versions;
-1. build: the three CUDA kernels (one nvcc per source, sm_90a, all started
+1. build: the CUDA kernels (one nvcc per source, sm_90a, all started
    together, linked into one library) and the host C++ libraries;
 2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
    shape (R=128, H=224, P=2048), with the gap quals as planes and as the
@@ -19,7 +19,8 @@ before printing any result.  Phases, one line each (or a few):
    PairHMM path's run whose kernel launches are counted.  Each of its
    kernel outputs is held against the twin on the same batch, and the
    rescue is recounted lane by lane from them;
-6. long PairHMM pairs (H=4096, R=300) against the f64 oracle;
+6. long PairHMM pairs (H=4096, R=300, the column kernel) against the f64
+   oracle;
 7. Smith-Waterman kernel vs twin, bit for bit on the region the host walk
    reads (bt codes of rows < reflen and columns < altlen, lastrow[:altlen],
    lastcol[:reflen]): (a) the realignment shape N=448, M=256, P=10,240;
@@ -40,17 +41,38 @@ before printing any result.  Phases, one line each (or a few):
     three kernels are counted, checked against the oracles as
     ``gkl_tpu/validation.py::check_corpus`` does, timed median of 3.  Each
     SW and PDHMM launch of its first run is held against the twin on the
-    same tensors, at the shapes the path gave it.
+    same tensors, at the shapes the path gave it;
+12. the long-haplotype kernels vs their twins, timed: (a) the rows kernel
+    (the scaled kernel's plain instance) through ``PairHMM._raw_batch``,
+    the dense batch's entry point, at phase 2's shape, also held against
+    the scaled kernel's in-range lanes; the column kernel, one kernel for
+    both TPU kernels it replaces, (b) at R=128, H=4,096, P=2,048 (the JAX
+    cols kernel's read range) and (c) at the JAX package's long-read bench
+    shape, R=1,024, H=4,096, P=256 (its relay's range).  In-range lanes agree
+    within TOL_IN_RANGE in log10, and the lanes below MIN_ACCEPTED are the
+    same save lanes within TOL_IN_RANGE of it;
+13. the long-haplotype active region through ``PairHMM.compute_likelihoods``
+    (4 haplotypes of 2,300-5,000 bases, 4,096 short reads of 101 and 151
+    bases, 64 long reads of 1,000-3,000): the slice's path, whose launches
+    are counted, timed median of 3 with reads/s.  A sample of every launch
+    is held against the f64 oracle, the rescued count against the lanes
+    below MIN_ACCEPTED, and the first launch of the column kernel with
+    reads of up to 128 rows, and the first with longer reads, against its
+    twin on the same tensors.
 
 ``python3 chip_smoke.py --profile`` runs phases 0-1 and then the main path
 under ``torch.profiler`` instead: stage times, the card's busy time and
 idle share, and device time by kernel and copy, as one JSON line.
 
-The line before the last is a JSON object describing each kernel of the
-path (``launches`` from phase 11; ``ms``/``plain_ms`` from phase 2's GATK
-constants, 7a and 8a; ``max_abs_err`` the largest in-range kernel-vs-twin
-difference seen); the last is ``{"ok": true, "device": {...}}``.  Any
-failure raises.
+The line before the last is a JSON object describing each kernel
+(``launches`` from the path that reaches it: phase 11 for the scaled, SW
+and PDHMM kernels, phase 13 for the column kernel, phase 12a's
+``_raw_batch`` call for the rows kernel, which no group of
+``compute_likelihoods`` reaches on one card, as in the JAX package;
+``ms``/``plain_ms`` from phase 2's GATK constants, 12a, 12b, 7a and 8a;
+``bound_ms`` the least time the card could take for that timed work;
+``max_abs_err`` the largest in-range kernel-vs-twin difference seen); the
+last is ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -76,10 +98,67 @@ TOL_ORACLE = 1e-4
 F32_RANGE_LOG10 = -64.0
 # insertion/deletion GOP and GCP of GATK's default-GOP reads
 GATK_GAP_QUALS = (45, 45, 10)
+# the JAX package's crossover between its cols and relay kernels
+# (gkl_tpu/api.py COLS_MAX_READ); the port's column kernel covers both, and
+# phases 12-13 show it on reads on either side
+JAX_COLS_MAX_READ = 128
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s.  int32 (the SW
+# cells): the Hopper white paper's 64 INT32 units per SM, x 132 SMs x the
+# 1.98 GHz boost clock.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+PEAK_INT32_PER_S = 64 * 132 * 1.98e9
+# operations per DP cell, counted from each kernel's inner loop (f32
+# products and sums; SW: int32 sums, maximums, comparisons and ORs), and
+# the bytes of the tables each kernel reads.  The PairHMM kernels also sum
+# M+X over the haplen columns of row rslen-1 for the result: 2 operations
+# a column of that one row (RESULT_OPS_PER_COLUMN).
+OPS_PER_CELL = {"pairhmm_scaled": 11, "pairhmm_rows": 11, "pairhmm_cols": 11,
+                "sw_forward": 13, "pdhmm": 12}
+RESULT_OPS_PER_COLUMN = 2
+TABLE_BYTES = {"pairhmm_scaled": 33536, "pairhmm_rows": 33536, "pairhmm_cols": 33536,
+               "sw_forward": 0, "pdhmm": 131584}
 
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(kernel, io_bytes, cells, result_columns=0):
+    """``bound_ms`` and ``bound_by`` of a kernel call: the larger of its
+    bytes (each input read once, each output written once, its tables)
+    over the memory rate and its operations (cells the data needs x
+    operations per cell, plus the PairHMM result's sum over
+    ``result_columns``, the lanes' haplen summed) over the peak rate of
+    their type."""
+    peak = PEAK_INT32_PER_S if kernel == "sw_forward" else PEAK_F32_PER_S
+    t_bytes = (io_bytes + TABLE_BYTES[kernel]) / PEAK_BYTES_PER_S
+    t_ops = (OPS_PER_CELL[kernel] * cells + RESULT_OPS_PER_COLUMN * result_columns) / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def lane_cells(haplen, rslen) -> int:
+    import torch
+
+    return int((haplen.to(torch.int64) * rslen.to(torch.int64)).sum())
+
+
+def indexed_args(planes):
+    """Dense card planes (hap, read, q, iq, dq, gcp, haplen, rslen) as the
+    indexed batch of ``pairhmm_rows`` and ``pairhmm_cols``: ridx = hidx =
+    0..P-1 and the gap quals as planes."""
+    import torch
+
+    hap, read, q, iq, dq, gcp, haplen, rslen = planes
+    lanes = torch.arange(hap.shape[1], dtype=torch.int32, device=hap.device)
+    return dict(hap_u=hap, readq_u=torch.stack([read, q]).contiguous(), ridx=lanes, hidx=lanes,
+                haplen=haplen, rslen=rslen, quals_u=torch.stack([iq, dq, gcp]).contiguous())
 
 
 def gatk_like_batch(R, H, P, seed=0):
@@ -291,17 +370,20 @@ def phase_kernel_vs_twin():
             return pc.pairhmm_raw_scaled_reference(*planes, haplen, rslen)
 
         what = f"bench shape, {next(iter(quals))}"
-        err, flags = compare_to_twin(pc.unpack(kernel(0)), twin(0), what)
+        k_out = kernel(0)
+        err, flags = compare_to_twin(pc.unpack(k_out), twin(0), what)
         if flags["lanes_in_range"] != P:
             raise AssertionError(f"{what}: {P - flags['lanes_in_range']} lanes out of f32 range")
         ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(twin, 5)
+        b = bound("pairhmm_scaled", nbytes(hap, variants[0], lanes, lanes, haplen, rslen,
+                                           quals.get("quals_u"), k_out), cells, H * P)
         log("2 kernel_vs_twin", shape=f"R{R}_H{H}_P{P}", quals=next(iter(quals)),
             max_abs_log10_err=err, **flags, kernel_ms=ms, twin_ms=plain_ms,
-            kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6)
-        return err, ms, plain_ms
+            kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6, **b)
+        return err, ms, plain_ms, b
 
-    err_u, _, _ = bench({"quals_u": torch.stack([iq, dq, gcp]).contiguous()})
-    err_c, ms, plain_ms = bench({"const_quals": GATK_GAP_QUALS})
+    err_u, _, _, _ = bench({"quals_u": torch.stack([iq, dq, gcp]).contiguous()})
+    err_c, ms, plain_ms, b = bench({"const_quals": GATK_GAP_QUALS})
     err = max(err_u, err_c)
 
     # deep lanes: the active region's deep reads (quals 4-8, 25% mutations)
@@ -339,7 +421,7 @@ def phase_kernel_vs_twin():
         raise AssertionError(f"unflagged deep lanes vs f64: {trusted_err:.3e}")
     if missed_bad.any():
         raise AssertionError(f"{int(missed_bad.sum())} twin-flagged lanes unflagged and wrong")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def phase_golden():
@@ -496,11 +578,18 @@ def phase_long_pairs():
         rd.append(ReadData(seq, rng.integers(20, 40, n).astype(np.uint8),
                            np.full(n, 45, np.uint8), np.full(n, 45, np.uint8),
                            np.full(n, 10, np.uint8)))
+    from gkl_tpu_torch.ops import pairhmm_cols, pairhmm_cuda
+
+    cols, scaled = pairhmm_cols.LAUNCHES, pairhmm_cuda.LAUNCHES
     got = PairHMM().compute_likelihoods(rd, [HaplotypeData(hap)])
     err = float(np.abs(got - oracle([hap] * len(rd), rd)).max())
-    log("6 long_pairs", H=4096, R=300, pairs=len(rd), max_abs_err=err)
+    log("6 long_pairs", H=4096, R=300, pairs=len(rd), max_abs_err=err,
+        launches_pairhmm_cols=pairhmm_cols.LAUNCHES - cols,
+        launches_pairhmm_scaled=pairhmm_cuda.LAUNCHES - scaled)
     if not np.isfinite(got).all() or err >= TOL_ORACLE:
         raise AssertionError(f"long pairs vs f64 oracle: max |err| = {err:.3e}")
+    if (pairhmm_cols.LAUNCHES - cols, pairhmm_cuda.LAUNCHES - scaled) != (1, 0):
+        raise AssertionError("long pairs did not take the column kernel")
 
 # HaplotypeCaller's read-to-haplotype realignment scores
 SW_GATK = (200, -150, -260, -11)
@@ -561,15 +650,16 @@ def phase_sw_kernel_vs_twin():
         t0 = time.perf_counter()
         bt_host = k_out[0].cpu()
         copy_ms = (time.perf_counter() - t0) * 1e3
-        cells = int((args[2].to(torch.int64) * args[3].to(torch.int64)).sum())
+        cells = lane_cells(args[2], args[3])
+        b = bound("sw_forward", nbytes(*args, *k_out), cells)
         log(what.split()[0] + " sw_kernel_vs_twin", shape=f"N{N}_M{args[1].shape[0]}_P{P}",
             strategy=strategy, in_range_mismatches=bad, kernel_ms=ms, twin_ms=plain_ms,
             kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6,
             bt_bytes=bt_host.numel(), bt_copy_ms=copy_ms,
-            bt_copy_gb_per_s=bt_host.numel() / copy_ms / 1e6)
+            bt_copy_gb_per_s=bt_host.numel() / copy_ms / 1e6, **b)
         del k_out, t_out, bt_host
         if timing is None:
-            timing = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+            timing = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b}
 
     # pairs at the length limit, one thread of 33M cells each
     rng = np.random.default_rng(8)
@@ -628,26 +718,29 @@ def pdhmm_batch(R, H, P, seed):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda") for k, v in arrays.items()}
 
 
-def compare_pdhmm(k_raw, t_raw, what):
+def compare_raw(k_raw, t_raw, what, near=0.0):
     """Kernel vs twin raw f32 results: every value finite, the same lanes
-    below MIN_ACCEPTED, and the others within TOL_IN_RANGE in log10.
-    Returns (max |log10 diff|, lanes below)."""
+    below MIN_ACCEPTED (save lanes within ``near`` in log10 of it), and the
+    lanes both put in range within TOL_IN_RANGE in log10.  Returns (max
+    |log10 diff|, lanes below in the twin)."""
     from gkl_tpu_torch.context import MIN_ACCEPTED
 
     k, t = k_raw.cpu().numpy(), t_raw.cpu().numpy()
     for name, x in (("kernel", k), ("twin", t)):
         if not np.isfinite(x).all():
-            raise AssertionError(f"PDHMM {what}: {int((~np.isfinite(x)).sum())} non-finite "
+            raise AssertionError(f"{what}: {int((~np.isfinite(x)).sum())} non-finite "
                                  f"{name} results")
     below_k, below_t = k < MIN_ACCEPTED, t < MIN_ACCEPTED
-    if (below_k != below_t).any():
-        raise AssertionError(f"PDHMM {what}: {int((below_k != below_t).sum())} lanes are "
-                             f"below MIN_ACCEPTED in one engine only")
-    ok = ~below_t
-    err = float(np.abs(np.log10(k[ok].astype(np.float64))
-                       - np.log10(t[ok].astype(np.float64))).max())
+    with np.errstate(divide="ignore"):
+        lk, lt = np.log10(k.astype(np.float64)), np.log10(t.astype(np.float64))
+    differ = (below_k != below_t) & ~(np.abs(lt - np.log10(float(MIN_ACCEPTED))) < near)
+    if differ.any():
+        raise AssertionError(f"{what}: {int(differ.sum())} lanes are below MIN_ACCEPTED "
+                             f"in one engine only")
+    ok = ~below_t & ~below_k
+    err = float(np.abs(lk[ok] - lt[ok]).max()) if ok.any() else 0.0
     if not err <= TOL_IN_RANGE:
-        raise AssertionError(f"PDHMM {what}: max |log10 diff| = {err:.3e}")
+        raise AssertionError(f"{what}: max |log10 diff| = {err:.3e}")
     return err, int(below_t.sum())
 
 
@@ -660,17 +753,19 @@ def phase_pdhmm_kernel_vs_twin():
     for what, R, H, P, reps in (("8a corpus", 256, 448, 8192, 5),
                                 ("8b long_reads", 1024, 512, 512, 3)):
         t = pdhmm_batch(R, H, P, seed=11)
-        err, below = compare_pdhmm(pdhmm_cuda.pdhmm(**t),
-                                   pdhmm_cuda.pdhmm_indexed_reference(**t), what)
+        k_out = pdhmm_cuda.pdhmm(**t)
+        err, below = compare_raw(k_out, pdhmm_cuda.pdhmm_indexed_reference(**t),
+                                 f"PDHMM {what}")
         ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm(**t), reps)
         plain_ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm_indexed_reference(**t), 1)
-        cells = int((t["haplen"].to(torch.int64) * t["rslen"].to(torch.int64)).sum())
+        cells = lane_cells(t["haplen"], t["rslen"])
+        b = bound("pdhmm", nbytes(*t.values(), k_out), cells)
         log(what.split()[0] + " pdhmm_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}",
             max_abs_log10_err=err, lanes_below_min_accepted=below, kernel_ms=ms,
             twin_ms=plain_ms, kernel_gcells_per_s=cells / ms / 1e6,
-            twin_gcells_per_s=cells / plain_ms / 1e6)
+            twin_gcells_per_s=cells / plain_ms / 1e6, **b)
         if timing is None:
-            timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
         timing["max_abs_err"] = max(timing["max_abs_err"], err)
     return timing
 
@@ -919,8 +1014,8 @@ def phase_region_corpus():
     for t, k_raw in calls.pop("pdhmm"):
         shape = (f"R{t['readq_u'].shape[1]}_H{t['hap_u'].shape[0]}_P{t['ridx'].shape[0]}"
                  f"_unique_reads{t['readq_u'].shape[2]}_unique_haps{t['hap_u'].shape[1]}")
-        err, below = compare_pdhmm(k_raw, pdhmm_cuda.pdhmm_indexed_reference(**t),
-                                   f"main path {shape}")
+        err, below = compare_raw(k_raw, pdhmm_cuda.pdhmm_indexed_reference(**t),
+                                 f"PDHMM main path {shape}")
         log("11 region_kernel_vs_twin", kernel="pdhmm", shape=shape,
             max_abs_log10_err=err, lanes_below_min_accepted=below)
         pd_err = max(pd_err, err)
@@ -944,6 +1039,306 @@ def phase_region_corpus():
     if n_sw < 640:
         raise AssertionError(f"only {n_sw} SW reads checked")
     return launches, pd_err
+
+
+def dense_batch(R, H, P, seed, mut, deep_every=16):
+    """Dense planes as card tensors, in the order of ``pairhmm_cols``'s
+    arguments: ragged lengths (haplen 3H/4..H, rslen R/2..R), reads are
+    windows of their lane's haplotype with ``mut`` substitutions, quals
+    18-45, gap quals 30-45 and GCP 10; every ``deep_every``-th lane a random
+    read (below MIN_ACCEPTED)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    hap = BASES[rng.integers(0, 4, (H, P))]
+    haplen = rng.integers(3 * H // 4, H + 1, P).astype(np.int32)
+    rslen = rng.integers(R // 2, R + 1, P).astype(np.int32)
+    start = rng.integers(0, haplen - rslen + 1)
+    rows = np.minimum(start[None, :] + np.arange(R)[:, None], H - 1)
+    read = np.take_along_axis(hap, rows, axis=0)
+    m = rng.random((R, P)) < mut
+    read[m] = BASES[rng.integers(0, 4, int(m.sum()))]
+    read[:, ::deep_every] = BASES[rng.integers(0, 4, (R, len(range(0, P, deep_every))))]
+    quals = [rng.integers(18, 46, (R, P)), rng.integers(30, 46, (R, P)),
+             rng.integers(30, 46, (R, P)), np.full((R, P), 10)]
+    arrays = [hap, read, *(q.astype(np.uint8) for q in quals), haplen, rslen]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in arrays]
+
+
+def phase_long_kernels():
+    """12: the rows kernel through ``_raw_batch`` and the column kernel on
+    reads in the ranges of both TPU kernels it replaces, each against its
+    twin on the same card tensors, timed.  Returns the kernels-line entries
+    of the rows and column kernels and the rows kernel's launches through
+    ``_raw_batch``."""
+    import torch
+
+    from gkl_tpu_torch import PairHMM
+    from gkl_tpu_torch import batch as batch_mod
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+    from gkl_tpu_torch.ops import pairhmm as pairhmm_ops
+    from gkl_tpu_torch.ops import pairhmm_cols
+    from gkl_tpu_torch.ops import pairhmm_cuda as pc
+
+    dev = torch.device("cuda")
+    # (a) the rows kernel at phase 2's shape, through the dense batch's
+    # entry point, then timed on the same card tensors
+    arrays = gatk_like_batch(128, 224, 2048)
+    (H, P), R = arrays[0].shape, arrays[1].shape[0]
+    hap, read, q, iq, dq, gcp, haplen, rslen = (torch.from_numpy(a).to(dev) for a in arrays)
+    pc.ROWS_LAUNCHES = 0
+    raw = PairHMM()._raw_batch(batch_mod.PackedPairs(*arrays, n_real=P))
+    rows_launches = pc.ROWS_LAUNCHES
+    if rows_launches != 1:
+        raise AssertionError(f"_raw_batch made {rows_launches} rows-kernel launches, not 1")
+    lanes = torch.arange(P, dtype=torch.int32, device=dev)
+    quals_u = torch.stack([iq, dq, gcp]).contiguous()
+    variants = [torch.stack([read, q + i]).contiguous() for i in range(3)]
+
+    def rows(i):
+        return pc.pairhmm_rows(hap, variants[i % 3], lanes, lanes, haplen, rslen, quals_u=quals_u)
+
+    def rows_twin(i):
+        planes = pc.expand_indexed_planes(hap, variants[i % 3], lanes, lanes, quals_u=quals_u)
+        return pairhmm_ops.pairhmm_raw(*planes, haplen, rslen, dtype="float32")
+
+    k_raw = torch.from_numpy(raw)
+    err, below = compare_raw(k_raw, rows_twin(0), "rows kernel vs twin", near=TOL_IN_RANGE)
+    if not torch.equal(rows(0).cpu(), k_raw):
+        raise AssertionError("rows kernel: _raw_batch and the wrapper differ on one batch")
+    mant, ex, _ = (t.cpu().numpy() for t in pc.unpack(pc.pairhmm_scaled(
+        hap, variants[0], lanes, lanes, haplen, rslen, quals_u=quals_u)))
+    scaled_log = np.log10(mant.astype(np.float64)) + ex * np.log10(2.0)
+    in_range = raw >= MIN_ACCEPTED
+    vs_scaled = float(np.abs(np.log10(raw[in_range].astype(np.float64))
+                             - scaled_log[in_range]).max())
+    if not vs_scaled <= TOL_IN_RANGE:
+        raise AssertionError(f"rows kernel vs scaled kernel: {vs_scaled:.3e}")
+    ms, plain_ms = cuda_ms(rows, 50), cuda_ms(rows_twin, 5)
+    cells = R * H * P
+    b = bound("pairhmm_rows", nbytes(hap, variants[0], quals_u, lanes, lanes, haplen, rslen,
+                                     k_raw), cells, H * P)
+    log("12a rows_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}", launches_via_raw_batch=rows_launches,
+        max_abs_log10_err=err, lanes_below_min_accepted=below,
+        max_abs_log10_vs_scaled_in_range=vs_scaled, kernel_ms=ms, twin_ms=plain_ms,
+        kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6, **b)
+    rows_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+
+    # the column kernel, one launch for any read length: (b) reads of up
+    # to 128 rows (the JAX cols kernel's range), (c) the JAX package's
+    # long-read bench shape (its relay's range), the twin in one chunk
+    cols_entry = None
+    for what, jax_kernel, R, H, P, mut, iters in (
+            ("12b", "_kernel", 128, 4096, 2048, 0.02, 10),
+            ("12c", "_kernel_relay", 1024, 4096, 256, 0.003, 3)):
+        planes = dense_batch(R, H, P, seed=R, mut=mut)
+        t = indexed_args(planes)
+        variants = [torch.stack([planes[1], planes[2] + i]).contiguous() for i in range(3)]
+
+        def kernel(i):
+            return pairhmm_cols.pairhmm_cols(**dict(t, readq_u=variants[i % 3]))
+
+        def twin(i):
+            return pairhmm_cols.pairhmm_raw_cols(planes[0], planes[1], planes[2] + i % 3,
+                                                 *planes[3:])
+
+        k_out = kernel(0)
+        err, below = compare_raw(k_out, twin(0), f"column kernel vs twin, {what}",
+                                 near=TOL_IN_RANGE)
+        ms, plain_ms = cuda_ms(kernel, iters), cuda_ms(twin, 1)
+        cells = lane_cells(t["haplen"], t["rslen"])
+        b = bound("pairhmm_cols", nbytes(*t.values(), k_out), cells, int(t["haplen"].sum()))
+        log(f"{what} cols_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}",
+            range_of=f"pairhmm_pallas_cols.{jax_kernel}", max_abs_log10_err=err,
+            lanes_below_min_accepted=below, kernel_ms=ms, twin_ms=plain_ms,
+            kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6, **b)
+        if cols_entry is None:
+            cols_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+        cols_entry["max_abs_err"] = max(cols_entry["max_abs_err"], err)
+        del planes, t, variants, k_out
+    return rows_entry, cols_entry, rows_launches
+
+
+def long_region(seed=0):
+    """The long-haplotype active region: 4 haplotypes of 2,300, 3,000, 4,000
+    and 5,000 bases on one random backbone, each with its own 0.5% SNPs and
+    three indels of 1-10 bases; 4,096 short reads (the first half 101
+    bases, the second 151) sampled from a haplotype with quals 18-45 and 1%
+    mutations, every 64th a deep read (quals 4-8, 25% mutations, as
+    ``gkl_tpu/validation.py::build_corpus``); 64 HiFi-class reads of
+    1,000-3,000 bases, quals 20-40, 0.2-0.5% mutations.  Returns (haps,
+    [(seq, qual)], deep mask)."""
+    rng = np.random.default_rng(seed)
+    backbone = BASES[rng.integers(0, 4, 5100)]
+    haps = []
+    for L in (2300, 3000, 4000, 5000):
+        seq = backbone.copy()
+        snp = rng.random(len(seq)) < 0.005
+        seq[snp] = BASES[rng.integers(0, 4, int(snp.sum()))]
+        for _ in range(3):
+            j, span = int(rng.integers(100, L - 100)), int(rng.integers(1, 11))
+            if rng.random() < 0.5:
+                seq = np.delete(seq, np.arange(j, j + span))
+            else:
+                seq = np.insert(seq, j, BASES[rng.integers(0, 4, span)])
+        haps.append(seq[:L].copy())
+
+    def sample(hap, L, rate, qlo, qhi):
+        start = int(rng.integers(0, len(hap) - L + 1))
+        seq = hap[start:start + L].copy()
+        mut = rng.random(L) < rate
+        seq[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+        return seq, rng.integers(qlo, qhi, L).astype(np.uint8)
+
+    reads, deep = [], []
+    for r in range(4096):
+        deep.append(r % 64 == 0)
+        rate, qlo, qhi = (0.25, 4, 9) if deep[-1] else (0.01, 18, 46)
+        reads.append(sample(haps[int(rng.integers(0, 4))], 101 if r < 2048 else 151,
+                            rate, qlo, qhi))
+    for _ in range(64):
+        L = int(rng.integers(1000, 3001))
+        fits = [h for h in haps if len(h) >= L]
+        reads.append(sample(fits[int(rng.integers(0, len(fits)))], L,
+                            float(rng.uniform(0.002, 0.005)), 20, 41))
+        deep.append(False)
+    return haps, reads, np.array(deep)
+
+
+def phase_long_region():
+    """13: the slice's path.  The long-haplotype region through
+    ``PairHMM.compute_likelihoods``: a first run with each column-kernel
+    launch recorded (and timed with CUDA events) and each batch's raw
+    result kept, then three timed runs.  Returns (launches of the column
+    kernel in the first run, largest kernel-vs-twin difference)."""
+    import torch
+
+    from gkl_tpu_torch import HaplotypeData, PairHMM, profiling
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+    from gkl_tpu_torch.ops import pairhmm_cols, pairhmm_cuda
+
+    class RecordingPairHMM(PairHMM):
+        """The engine, keeping each column-kernel batch and its raw f32
+        result as the rescue rule receives them."""
+
+        def __init__(self):
+            super().__init__()
+            self.batches = []
+
+        def _forward_raw_finalize(self, packed, raw):
+            self.batches.append((packed, raw.copy()))
+            return super()._forward_raw_finalize(packed, raw)
+
+    haps, reads, deep = long_region()
+    rd = to_read_data(reads)
+    hd = [HaplotypeData(h) for h in haps]
+    nr, nh = len(rd), len(hd)
+    cells = sum(len(r.read_bases) for r in rd) * sum(len(h) for h in haps)
+    real_cols = pairhmm_cols.pairhmm_cols
+    calls = []
+
+    def recording_cols(**t):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_cols(**t)
+        end.record()
+        calls.append((t, out, start, end))
+        return out
+
+    os.environ.pop("GKL_TPU_RESCUE", None)
+    os.environ["GKL_TPU_METRICS"] = "1"
+    hmm = RecordingPairHMM()
+    profiling.METRICS.reset()
+    pairhmm_cols.LAUNCHES = pairhmm_cuda.LAUNCHES = pairhmm_cuda.ROWS_LAUNCHES = 0
+    pairhmm_cols.pairhmm_cols = recording_cols
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = hmm.compute_likelihoods_async(rd, hd)
+        t1 = time.perf_counter()
+        groups = [(kind, idxs) for kind, idxs, _, _ in pending._work]
+        lik = pending.result().reshape(nr, nh)
+        t2 = time.perf_counter()
+    finally:
+        pairhmm_cols.pairhmm_cols = real_cols
+    launches = {"pairhmm_cols": pairhmm_cols.LAUNCHES, "pairhmm_scaled": pairhmm_cuda.LAUNCHES,
+                "pairhmm_rows": pairhmm_cuda.ROWS_LAUNCHES}
+    first = profiling.METRICS.snapshot().get("pairhmm_rescue", {})
+    kernel_ms = sum(s.elapsed_time(e) for _, _, s, e in calls)
+    long_ms = sum(s.elapsed_time(e) for t, _, s, e in calls if t["readq_u"].shape[1] >= 1000)
+
+    walls, rescue_s = [], []
+    for _ in range(3):
+        profiling.METRICS.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        PairHMM().compute_likelihoods(rd, hd)
+        walls.append(time.perf_counter() - t)
+        rescue_s.append(profiling.METRICS.snapshot().get("pairhmm_rescue", {}).get("seconds", 0.0))
+    os.environ.pop("GKL_TPU_METRICS")
+
+    # launches: the column kernel only, on groups in the read ranges of
+    # both TPU kernels it replaces
+    cols_range = [t["readq_u"].shape[1] <= JAX_COLS_MAX_READ for t, _, _, _ in calls]
+    if (launches["pairhmm_cols"] != len(calls) or launches["pairhmm_scaled"]
+            or launches["pairhmm_rows"] or not any(cols_range) or all(cols_range)):
+        raise AssertionError(f"launches {launches}, read bucket <= 128 per launch {cols_range}")
+    # the rescue: every lane below MIN_ACCEPTED, and only those
+    below = sum(int(np.sum(raw[: pk.n_real] < MIN_ACCEPTED)) for pk, raw in hmm.batches)
+    if not 0 < first.get("items", 0) == below:
+        raise AssertionError(f"{first.get('items', 0)} lanes rescued, {below} below MIN_ACCEPTED")
+    # the first launch in each range against the twin on the same tensors
+    twin_err = 0.0
+    for in_cols_range in (True, False):
+        t, out, _, _ = calls[cols_range.index(in_cols_range)]
+        shape = f"R{t['readq_u'].shape[1]}_H{t['hap_u'].shape[0]}_P{t['ridx'].shape[0]}"
+        planes = pairhmm_cuda.expand_indexed_planes(
+            t["hap_u"], t["readq_u"], t["ridx"], t["hidx"], const_quals=t.get("const_quals"),
+            quals_u=t.get("quals_u"))
+        err, n_below = compare_raw(
+            out, pairhmm_cols.pairhmm_raw_cols(*planes, t["haplen"], t["rslen"]),
+            f"column kernel vs twin on the path, {shape}", near=TOL_IN_RANGE)
+        log("13 long_region_kernel_vs_twin", shape=shape,
+            range_of="pairhmm_pallas_cols." + ("_kernel" if in_cols_range else "_kernel_relay"),
+            max_abs_log10_err=err, lanes_below_min_accepted=n_below)
+        twin_err = max(twin_err, err)
+        del planes
+    del calls
+    # a sample of every launch (8 evenly spaced lanes) against the oracle
+    flat = lik.ravel()
+    sample = sorted({int(idxs[k]) for _, idxs in groups
+                     for k in np.linspace(0, len(idxs) - 1, min(8, len(idxs))).astype(int)})
+    exact = oracle([haps[i % nh] for i in sample], [rd[i // nh] for i in sample])
+    # a long read against a haplotype that lacks most of it underflows
+    # even the f64 range: there the rescue returns the oracle's -inf
+    if (np.isneginf(flat[sample]) != np.isneginf(exact)).any():
+        raise AssertionError("lanes past the f64 range differ from the oracle's")
+    finite = np.isfinite(exact)
+    err = float(np.abs(flat[sample][finite] - exact[finite]).max())
+    n_long = sum(len(r.read_bases) >= 1000 for r in rd)
+    log("13 long_region", reads=nr, short_reads=nr - n_long, long_reads=n_long, haplotypes=nh,
+        lanes=nr * nh, cells=cells, groups=len(groups),
+        launches_pairhmm_cols=launches["pairhmm_cols"],
+        groups_reads_to_128=sum(cols_range),
+        groups_reads_past_128=len(cols_range) - sum(cols_range),
+        launches_pairhmm_scaled=launches["pairhmm_scaled"],
+        launches_pairhmm_rows=launches["pairhmm_rows"],
+        wall_s_first=t2 - t0, dispatch_s_first=t1 - t0, result_s_first=t2 - t1,
+        kernel_ms_first=kernel_ms, kernel_ms_long_reads_first=long_ms,
+        kernel_share_of_wall_first=kernel_ms / 1e3 / (t2 - t0),
+        rescued_lanes=first.get("items", 0),
+        rescue_s_first=first.get("seconds", 0.0), wall_s_median_of_3=float(np.median(walls)),
+        rescue_s_median_of_3=float(np.median(rescue_s)),
+        reads_per_s_median=nr / float(np.median(walls)),
+        gcells_per_s_median=cells / float(np.median(walls)) / 1e9,
+        oracle_lanes=len(sample), oracle_lanes_past_f64_range=int((~finite).sum()),
+        max_abs_err=err, kernel_vs_twin=twin_err, deep_reads=int(deep.sum()),
+        lanes_past_f64_range=int(np.isneginf(lik).sum()))
+    if not (lik <= 1e-9).all():
+        raise AssertionError("NaN or positive likelihoods")
+    if err >= TOL_ORACLE:
+        raise AssertionError(f"long region vs f64 oracle: max |err| = {err:.3e}")
+    return launches["pairhmm_cols"], twin_err
 
 
 def phase_profile():
@@ -1004,15 +1399,24 @@ def main(argv) -> int:
     phase_region()
     launches, path_err = phase_region_corpus()
     pd_timing["max_abs_err"] = max(pd_timing["max_abs_err"], path_err)
+    rows_timing, cols_timing, launches["pairhmm_rows"] = phase_long_kernels()
+    launches["pairhmm_cols"], path_err = phase_long_region()
+    cols_timing["max_abs_err"] = max(cols_timing["max_abs_err"], path_err)
     kernels = [
-        ("pairhmm_scaled", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
-        ("sw_forward", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
-        ("pdhmm", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
+        ("pairhmm_scaled", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
+        ("pairhmm_rows", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:268", rows_timing),
+        ("pairhmm_cols", "pairhmm_cols.cu",
+         "gkl_tpu/ops/pairhmm_pallas_cols.py:44 and :166", cols_timing),
+        ("sw_forward", "sw_forward.cu", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
+        ("pdhmm", "pdhmm.cu", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
     ]
+    notes = {"pairhmm_cols": "one kernel for both TPU kernels, no regime switch"}
+    # no single PyTorch call computes a PairHMM, PDHMM or SW forward
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{name}.cu",
-        "replaces": replaces, "launches": launches[name], **t}
-        for name, replaces, t in kernels]}), flush=True)
+        "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{source}",
+        "replaces": replaces, "launches": launches[name], **t, "library_ms": None,
+        **({"note": notes[name]} if name in notes else {})}
+        for name, source, replaces, t in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,20 @@
-// Scaled-f32 PairHMM forward for Hopper (sm_90a), bound through a plain C
-// interface (ctypes).
+// PairHMM forward by read rows for Hopper (sm_90a), in two instances of one
+// template, bound through a plain C interface (ctypes).
 //
-// Replaces gkl_tpu/ops/pairhmm_pallas.py::_scaled_kernel together with its
+// The scaled instance (gkl_pairhmm_scaled) replaces
+// gkl_tpu/ops/pairhmm_pallas.py::_scaled_kernel together with its
 // on-device prologue: the lane gather of expand_indexed_planes and the
 // transition prep (_ph2pr_arith, _m2m_arith64).  One launch takes the
 // deduplicated batch (unique hap and read planes plus per-lane indices) and
 // returns, per lane, the forward probability as mantissa * 2^exp2 and a
 // window flag.
+//
+// The plain instance (gkl_pairhmm_rows, kScaled = false) replaces
+// gkl_tpu/ops/pairhmm_pallas.py::_kernel, the f32 forward without
+// rescaling: it drops the renormalisation, the flag and the exponent
+// accumulator, stops at row rslen-1, and writes the raw f32 result per
+// lane (what the scaled instance computes for a lane whose values stay in
+// the f32 range).  A dense batch reaches it with ridx = hidx = 0..P-1.
 //
 // What it computes, per lane (pair), for read rows r and hap columns j:
 //   M[r][j] = prior * (pMM*M[r-1][j-1] + pGAPM*(X[r-1][j-1] + Y[r-1][j-1]))
@@ -29,14 +37,16 @@
 // which replaces the TPU kernel's Hillis-Steele scan.  Transition
 // probabilities come from the exact context tables (128-entry ph2pr and the
 // 8256-entry triangular match-to-match cache for quals <= 127) held in
-// shared memory.  Only columns < haplen and rows < 8*ceil(rslen/8) are
-// visited: columns past haplen never feed valid ones, and later rows feed
-// neither the result nor the (rslen-gated) flag.
+// shared memory.  Only columns < haplen and rows < 8*ceil(rslen/8) (plain
+// instance: rslen) are visited: columns past haplen never feed valid ones,
+// and later rows feed neither the result nor the (rslen-gated) flag.
 //
 // What bounds it on this card: scratch traffic, about 24 B per cell
-// (read and write M, X, Y in f32) plus one hap byte, and at small lane
-// counts the few warps in flight.  Later work keeps the state in shared
-// memory or registers (warp-per-lane anti-diagonals, as in gpuPairHMM).
+// (read and write M, X, Y in f32) plus one hap byte, against 11 f32
+// products and sums a cell (and 2 a column on row rslen-1, the result's
+// sum); at small lane counts the few warps in flight.
+// Later work keeps the state in shared memory or registers (warp-per-lane
+// anti-diagonals, as in gpuPairHMM).
 //
 // Numerics: built with -ftz=true, so f32 subnormals flush to zero as on
 // the TPU the 2^90 window and the flag were tuned on: a column "dies"
@@ -46,11 +56,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pairhmm_common.cuh"
+
 namespace {
 
-constexpr int kNCode = 78;              // 'N'
-constexpr int kTri = 128 * 129 / 2;     // match-to-match entries, quals <= 127
-constexpr float kInitialConstant = 0x1p120f;
+using namespace pairhmm;
+
 constexpr float kUp = 0x1p90f;           // renormalisation target
 
 __device__ __forceinline__ int exponent_of(float v) {
@@ -70,7 +81,8 @@ __device__ __forceinline__ float pow2m(int d) {
   return pow2(d1) * pow2(d2);
 }
 
-__global__ void pairhmm_scaled_kernel(
+template <bool kScaled>
+__global__ void pairhmm_kernel(
     const uint8_t* __restrict__ hap_u, int H, int nu_h,
     const uint8_t* __restrict__ readq_u, int R, int nu_r,
     const uint8_t* __restrict__ quals_u, int c_iq, int c_dq, int c_gcp,
@@ -81,11 +93,8 @@ __global__ void pairhmm_scaled_kernel(
     float* __restrict__ Ms, float* __restrict__ Xs, float* __restrict__ Ys,
     uint8_t* __restrict__ live,
     int32_t* __restrict__ out) {
-  __shared__ float ph2pr[128];
-  __shared__ float m2m[kTri];
-  for (int i = threadIdx.x; i < 128; i += blockDim.x) ph2pr[i] = ph2pr_g[i];
-  for (int i = threadIdx.x; i < kTri; i += blockDim.x) m2m[i] = m2m_g[i];
-  __syncthreads();
+  __shared__ Tables tables;
+  tables.load(ph2pr_g, m2m_g);
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
@@ -94,14 +103,14 @@ __global__ void pairhmm_scaled_kernel(
       rl < 1 || rl > R) {
     // malformed lane: no result (NaN mantissa) and flag -1
     out[p] = 0x7fc00000;
-    out[P + p] = 0;
-    out[2 * P + p] = -1;
+    if constexpr (kScaled) {
+      out[P + p] = 0;
+      out[2 * P + p] = -1;
+    }
     return;
   }
 
   const size_t plane = (size_t)R * nu_r;
-  const uint8_t* bases = readq_u + ri;
-  const uint8_t* quals = readq_u + plane + ri;
   const uint8_t* hap = hap_u + hi;
   const float inity = kInitialConstant / (float)hl;
   const int nchunks = (rl + 7) >> 3;
@@ -118,36 +127,18 @@ __global__ void pairhmm_scaled_kernel(
     int lost = 0;
     for (int k = 0; k < 8; ++k) {
       const int r = 8 * c + k;
-      const size_t ro = (size_t)r * nu_r;
-      const int rb = bases[ro];
-      const int qv = quals[ro] & 127;
-      int iqv, dqv, gv;
-      if (quals_u != nullptr) {
-        iqv = quals_u[ro + ri] & 127;
-        dqv = quals_u[plane + ro + ri] & 127;
-        gv = quals_u[2 * plane + ro + ri] & 127;
-      } else {
-        iqv = c_iq & 127;
-        dqv = c_dq & 127;
-        gv = c_gcp & 127;
-      }
-      const int qmax = max(iqv, dqv), qmin = min(iqv, dqv);
-      const float pmm = m2m[((qmax * (qmax + 1)) >> 1) + qmin];
-      const float ph_c = ph2pr[gv];
-      const float pgapm = 1.f - ph_c;
-      const float pmx = ph2pr[iqv];
-      const float pmy = ph2pr[dqv];
-      const float pxx = ph_c, pyy = ph_c;
-      const float distm = ph2pr[qv];
-      const float dmatch = 1.f - distm;
-      const float dmis = distm / 3.f;
+      if (!kScaled && r >= rl) break;
+      const size_t ro = (size_t)r * nu_r + ri;
+      const int rb = readq_u[ro];
+      const Row w = row_of(tables, readq_u, quals_u, c_iq, c_dq, c_gcp, plane, ro);
       const bool read_n = rb == kNCode;
+      const bool last_row = r + 1 == rl;
       const bool first_row = r == 0;
-      const bool rescale = k == 0 && c > 0;
+      const bool rescale = kScaled && k == 0 && c > 0;
 
       // t carries pMM*M + pGAPM*(X + Y) of the previous row's column j-1;
       // for column 0 that is pGAPM * Y[r-1][-1] (inity on row 0 only)
-      float t = first_row ? pgapm * inity : 0.f;
+      float t = first_row ? w.pgapm * inity : 0.f;
       float m_left = 0.f, y_left = 0.f, row_sum = 0.f;
       for (int j = 0; j < hl; ++j) {
         const size_t idx = (size_t)j * P + p;
@@ -168,32 +159,38 @@ __global__ void pairhmm_scaled_kernel(
         }
         const int hb = hap[(size_t)j * nu_h];
         const bool match = hb == rb || hb == kNCode || read_n;
-        const float prior = match ? dmatch : dmis;
+        const float prior = match ? w.dmatch : w.dmis;
         const float mn = prior * t;
-        const float xn = pmx * mp + pxx * xp;
-        const float yn = pyy * y_left + pmy * m_left;
-        t = pmm * mp + pgapm * (xp + yp);
+        const float xn = w.pmx * mp + w.pc * xp;
+        const float yn = w.pc * y_left + w.pmy * m_left;
+        t = w.pmm * mp + w.pgapm * (xp + yp);
         Ms[idx] = mn;
         Xs[idx] = xn;
         Ys[idx] = yn;
         m_left = mn;
         y_left = yn;
-        row_sum += mn + xn;
-        const int alive = (mn != 0.f) | (xn != 0.f) | (yn != 0.f);
-        if (k == 3) {
-          // bit 0: alive at the last renormalisation; bit 1: row-3 sample
-          const int before = c == 0 ? 1 : (live[idx] & 1);
-          live[idx] = (uint8_t)(before | (alive << 1));
-        } else if (k == 7) {
-          const int b = live[idx];
-          lost |= (b & 1) & ~((b >> 1) & alive);
-          live[idx] = (uint8_t)alive;
-          mx = fmaxf(mx, fmaxf(mn, fmaxf(xn, yn)));
+        if (last_row) row_sum += mn + xn;
+        if constexpr (kScaled) {
+          const int alive = (mn != 0.f) | (xn != 0.f) | (yn != 0.f);
+          if (k == 3) {
+            // bit 0: alive at the last renormalisation; bit 1: row-3 sample
+            const int before = c == 0 ? 1 : (live[idx] & 1);
+            live[idx] = (uint8_t)(before | (alive << 1));
+          } else if (k == 7) {
+            const int b = live[idx];
+            lost |= (b & 1) & ~((b >> 1) & alive);
+            live[idx] = (uint8_t)alive;
+            mx = fmaxf(mx, fmaxf(mn, fmaxf(xn, yn)));
+          }
         }
       }
-      if (r + 1 == rl) acc_chunk += row_sum;
+      if (last_row) acc_chunk += row_sum;
     }
 
+    if constexpr (!kScaled) {
+      acc_m += acc_chunk;  // nonzero only in the chunk that holds row rslen-1
+      continue;
+    }
     // fold the chunk into the accumulator by value exponents
     const bool has_acc = acc_m > 0.f, has_chunk = acc_chunk > 0.f;
     const int chunk_e = e_state + exponent_of(acc_chunk);
@@ -212,8 +209,10 @@ __global__ void pairhmm_scaled_kernel(
     e_state += e - 90;
   }
   out[p] = __float_as_int(acc_m);
-  out[P + p] = e_acc;
-  out[2 * P + p] = flag;
+  if constexpr (kScaled) {
+    out[P + p] = e_acc;
+    out[2 * P + p] = flag;
+  }
 }
 
 }  // namespace
@@ -228,11 +227,9 @@ extern "C" int gkl_pairhmm_scaled(
     void* Ms, void* Xs, void* Ys, void* live,
     void* out, void* stream) {
   if (P <= 0) return 0;
-  // fewer lanes than the card has SMs x 2 blocks: smaller blocks, more SMs
-  int block = 128;
-  while (block > 32 && (P + block - 1) / block < 264) block >>= 1;
+  const int block = block_for(P);
   const int grid = (P + block - 1) / block;
-  pairhmm_scaled_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  pairhmm_kernel<true><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(hap_u), H, nu_h,
       static_cast<const uint8_t*>(readq_u), R, nu_r,
       static_cast<const uint8_t*>(quals_u), c_iq, c_dq, c_gcp,
@@ -241,5 +238,29 @@ extern "C" int gkl_pairhmm_scaled(
       P, static_cast<const float*>(ph2pr), static_cast<const float*>(m2m),
       static_cast<float*>(Ms), static_cast<float*>(Xs), static_cast<float*>(Ys),
       static_cast<uint8_t*>(live), static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gkl_pairhmm_rows(
+    const void* hap_u, int H, int nu_h,
+    const void* readq_u, int R, int nu_r,
+    const void* quals_u, int c_iq, int c_dq, int c_gcp,
+    const void* ridx, const void* hidx, const void* haplen, const void* rslen,
+    int P,
+    const void* ph2pr, const void* m2m,
+    void* Ms, void* Xs, void* Ys,
+    void* out, void* stream) {
+  if (P <= 0) return 0;
+  const int block = block_for(P);
+  const int grid = (P + block - 1) / block;
+  pairhmm_kernel<false><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(hap_u), H, nu_h,
+      static_cast<const uint8_t*>(readq_u), R, nu_r,
+      static_cast<const uint8_t*>(quals_u), c_iq, c_dq, c_gcp,
+      static_cast<const int32_t*>(ridx), static_cast<const int32_t*>(hidx),
+      static_cast<const int32_t*>(haplen), static_cast<const int32_t*>(rslen),
+      P, static_cast<const float*>(ph2pr), static_cast<const float*>(m2m),
+      static_cast<float*>(Ms), static_cast<float*>(Xs), static_cast<float*>(Ys),
+      nullptr, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

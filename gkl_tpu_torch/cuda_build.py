@@ -60,6 +60,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # out (3, P) i32: mantissa bits, exp2, flag
         vp,                      # cudaStream_t
     ]
+    # the rows kernel and the column kernel take the same arguments
+    lib.gkl_pairhmm_rows.argtypes = lib.gkl_pairhmm_cols.argtypes = [
+        vp, i32, i32,            # hap_u (H, nu_h)
+        vp, i32, i32,            # readq_u (2, R, nu_r)
+        vp, i32, i32, i32,       # quals_u (3, R, nu_r) or NULL; constant iq, dq, gcp
+        vp, vp, vp, vp, i32,     # ridx, hidx, haplen, rslen; P
+        vp, vp,                  # ph2pr (128,), match-to-match (8256,)
+        vp, vp, vp,              # M, X, Y (H, P) f32 scratch (cols: the boundary row)
+        vp,                      # out (P,) f32
+        vp,                      # cudaStream_t
+    ]
     lib.gkl_sw_forward.argtypes = [
         vp, i32,                 # ref (N, P) u8; N
         vp, i32,                 # alt (M, P) u8; M
@@ -79,7 +90,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # out (P,) f32
         vp,                      # cudaStream_t
     ]
-    for fn in (lib.gkl_pairhmm_scaled, lib.gkl_sw_forward, lib.gkl_pdhmm):
+    for fn in (lib.gkl_pairhmm_scaled, lib.gkl_pairhmm_rows, lib.gkl_pairhmm_cols,
+               lib.gkl_sw_forward, lib.gkl_pdhmm):
         fn.restype = i32
 
 

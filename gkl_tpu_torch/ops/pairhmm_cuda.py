@@ -1,12 +1,15 @@
-"""Scaled-f32 PairHMM forward: the CUDA kernel's wrapper and its plain twin.
+"""PairHMM forward by read rows: the CUDA kernel's wrappers and their plain twins.
 
 Counterpart of ``gkl_tpu/ops/pairhmm_pallas.py`` (``_scaled_kernel``,
-``pairhmm_raw_pallas_scaled``, ``expand_indexed_planes`` and the transition
-prep).  :func:`pairhmm_scaled` takes a deduplicated batch: on CUDA tensors
-it launches ``csrc/pairhmm_scaled.cu`` (built for sm_90a) or raises; on CPU
-tensors it runs :func:`pairhmm_raw_scaled_reference`, the same function in
-plain PyTorch.  Each result is the per-lane forward probability as
-``mantissa * 2^exp2`` plus a window flag (see the kernel's source note).
+``_kernel``, their wrappers, ``expand_indexed_planes`` and the transition
+prep).  Both wrappers take a deduplicated batch and launch an instance of
+``csrc/pairhmm_scaled.cu`` (built for sm_90a) on CUDA tensors, or raise:
+
+* :func:`pairhmm_scaled`: the per-lane forward probability as
+  ``mantissa * 2^exp2`` plus a window flag (see the kernel's source note);
+  its twin on CPU tensors is :func:`pairhmm_raw_scaled_reference`;
+* :func:`pairhmm_rows`: the plain f32 forward without rescaling; its twin
+  on CPU tensors is ``ops.pairhmm.pairhmm_raw(..., dtype="float32")``.
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ import torch
 
 from .. import context as ctx_mod
 from .. import cuda_build
-from .pairhmm import N_CODE, _shift_down, transition_rows
+from .pairhmm import N_CODE, _shift_down, pairhmm_raw, transition_rows
 
-# Launches of the CUDA kernel in this process.
+# Launches of the scaled instance and of the plain (rows) instance of the
+# CUDA kernel in this process.
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
 
 _MAX_SUBNORMAL = 2.0 ** -126 - 2.0 ** -149  # largest f32 subnormal
 _M2M_ENTRIES = 128 * 129 // 2  # match-to-match cache entries for quals <= 127
@@ -227,6 +232,57 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u):
+    """Validate an indexed batch's tensors; returns (H, nu_h, R, nu_r, P)."""
+    device = hap_u.device
+    _check("hap_u", hap_u, torch.uint8, 2, device)
+    _check("readq_u", readq_u, torch.uint8, 3, device)
+    for name, t in (("ridx", ridx), ("hidx", hidx), ("haplen", haplen), ("rslen", rslen)):
+        _check(name, t, torch.int32, 1, device)
+    H, nu_h = hap_u.shape
+    _, R, nu_r = readq_u.shape
+    P = ridx.shape[0]
+    if readq_u.shape[0] != 2:
+        raise ValueError(f"readq_u must be (2, R, nu_r), got {tuple(readq_u.shape)}")
+    if not hidx.shape[0] == haplen.shape[0] == rslen.shape[0] == P:
+        raise ValueError("ridx, hidx, haplen and rslen must have one entry per lane")
+    if (const_quals is None) == (quals_u is None):
+        raise ValueError("give exactly one of const_quals and quals_u")
+    if quals_u is not None:
+        _check("quals_u", quals_u, torch.uint8, 3, device)
+        if tuple(quals_u.shape) != (3, R, nu_r):
+            raise ValueError(f"quals_u must be (3, {R}, {nu_r}), got {tuple(quals_u.shape)}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no PairHMM kernel for device {device}")
+    return H, nu_h, R, nu_r, P
+
+
+def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
+            H, nu_h, R, nu_r, P, out, *extra):
+    """Launch one of the PairHMM kernels (``fn``: an instance of the row
+    kernel, or the column kernel) on an indexed batch's CUDA tensors, with
+    fresh (H, P) M/X/Y scratch plus ``extra`` scratch, into ``out``."""
+    device = hap_u.device
+    ph2pr, m2m = _device_tables(device)
+    Ms = torch.empty((H, P), dtype=torch.float32, device=device)
+    Xs = torch.empty_like(Ms)
+    Ys = torch.empty_like(Ms)
+    ciq, cdq, cgcp = const_quals if const_quals is not None else (0, 0, 0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(
+        hap_u.data_ptr(), H, nu_h,
+        readq_u.data_ptr(), R, nu_r,
+        quals_u.data_ptr() if quals_u is not None else None,
+        int(ciq), int(cdq), int(cgcp),
+        ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
+        ph2pr.data_ptr(), m2m.data_ptr(),
+        Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(), *(t.data_ptr() for t in extra),
+        out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def pairhmm_scaled(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
                    const_quals=None, quals_u=None) -> torch.Tensor:
     """Scaled-f32 PairHMM forward of an indexed batch.
@@ -246,54 +302,51 @@ def pairhmm_scaled(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     mantissa and flag -1).
     """
     global LAUNCHES
-    device = hap_u.device
-    _check("hap_u", hap_u, torch.uint8, 2, device)
-    _check("readq_u", readq_u, torch.uint8, 3, device)
-    for name, t in (("ridx", ridx), ("hidx", hidx), ("haplen", haplen), ("rslen", rslen)):
-        _check(name, t, torch.int32, 1, device)
-    H, nu_h = hap_u.shape
-    _, R, nu_r = readq_u.shape
-    P = ridx.shape[0]
-    if readq_u.shape[0] != 2 or R % 8:
+    H, nu_h, R, nu_r, P = _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen,
+                                         const_quals, quals_u)
+    if R % 8:
         raise ValueError(f"readq_u must be (2, R, nu_r) with R % 8 == 0, got {tuple(readq_u.shape)}")
-    if not hidx.shape[0] == haplen.shape[0] == rslen.shape[0] == P:
-        raise ValueError("ridx, hidx, haplen and rslen must have one entry per lane")
-    if (const_quals is None) == (quals_u is None):
-        raise ValueError("give exactly one of const_quals and quals_u")
-    if quals_u is not None:
-        _check("quals_u", quals_u, torch.uint8, 3, device)
-        if tuple(quals_u.shape) != (3, R, nu_r):
-            raise ValueError(f"quals_u must be (3, {R}, {nu_r}), got {tuple(quals_u.shape)}")
-
+    device = hap_u.device
     if device.type == "cpu":
         planes = expand_indexed_planes(hap_u, readq_u, ridx, hidx,
                                        const_quals=const_quals, quals_u=quals_u)
         mant, ex, flag = pairhmm_raw_scaled_reference(*planes, haplen, rslen)
         return torch.stack([mant.view(torch.int32), ex, flag])
-    if device.type != "cuda":
-        raise ValueError(f"no PairHMM kernel for device {device}")
 
     lib = cuda_build.load()
-    ph2pr, m2m = _device_tables(device)
-    Ms = torch.empty((H, P), dtype=torch.float32, device=device)
-    Xs = torch.empty_like(Ms)
-    Ys = torch.empty_like(Ms)
     live = torch.empty((H, P), dtype=torch.uint8, device=device)
     out = torch.empty((3, P), dtype=torch.int32, device=device)
-    ciq, cdq, cgcp = const_quals if const_quals is not None else (0, 0, 0)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.gkl_pairhmm_scaled(
-        hap_u.data_ptr(), H, nu_h,
-        readq_u.data_ptr(), R, nu_r,
-        quals_u.data_ptr() if quals_u is not None else None,
-        int(ciq), int(cdq), int(cgcp),
-        ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
-        ph2pr.data_ptr(), m2m.data_ptr(),
-        Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(), live.data_ptr(),
-        out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"pairhmm_scaled kernel launch failed: CUDA error {rc}")
+    _launch(lib.gkl_pairhmm_scaled, hap_u, readq_u, ridx, hidx, haplen, rslen,
+            const_quals, quals_u, H, nu_h, R, nu_r, P, out, live)
     LAUNCHES += 1
+    return out
+
+
+def pairhmm_rows(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
+                 const_quals=None, quals_u=None) -> torch.Tensor:
+    """Plain-f32 PairHMM forward of an indexed batch, without rescaling.
+
+    The arguments are those of :func:`pairhmm_scaled`, with any read
+    bucket R; a dense batch passes ``ridx = hidx = arange(P)`` and its
+    iq/dq/gcp planes as ``quals_u``.  Returns the (P,) float32 raw forward
+    probability (scaled by the initial constant 2^120, as
+    ``ops.pairhmm.pairhmm_raw``) on the inputs' device: CPU tensors run
+    that twin on the expanded planes; CUDA tensors launch the kernel's
+    plain instance (a malformed lane gets NaN).
+    """
+    global ROWS_LAUNCHES
+    H, nu_h, R, nu_r, P = _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen,
+                                         const_quals, quals_u)
+    if hap_u.device.type == "cpu":
+        planes = expand_indexed_planes(hap_u, readq_u, ridx, hidx,
+                                       const_quals=const_quals, quals_u=quals_u)
+        return pairhmm_raw(*planes, haplen, rslen, dtype="float32")
+
+    lib = cuda_build.load()
+    out = torch.empty(P, dtype=torch.float32, device=hap_u.device)
+    _launch(lib.gkl_pairhmm_rows, hap_u, readq_u, ridx, hidx, haplen, rslen,
+            const_quals, quals_u, H, nu_h, R, nu_r, P, out)
+    ROWS_LAUNCHES += 1
     return out
 
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import golden
 from torch_cases import flag_cases
 from gkl_tpu_torch import (HaplotypeData, PairHMM, PairHMMNativeArguments,
@@ -274,11 +275,11 @@ def test_pdhmm_pallas_level_runs_on_card(cuda_device):
     assert pdhmm_cuda.LAUNCHES == launches + 1 and np.isfinite(got).all()
 
 
-@pytest.mark.parametrize("kernel", ["sw_forward", "pdhmm"])
+@pytest.mark.parametrize("kernel", ["sw_forward", "pdhmm", "pairhmm_rows", "pairhmm_cols"])
 def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kernel):
-    """With no kernel to build, the SW and PDHMM wrappers raise on CUDA
-    tensors and never fall back to their twins."""
-    from gkl_tpu_torch.ops import pdhmm_cuda, sw_cuda
+    """With no kernel to build, the SW, PDHMM, rows and cols wrappers raise
+    on CUDA tensors and never fall back to their twins."""
+    from gkl_tpu_torch.ops import pairhmm_cols, pdhmm_cuda, sw_cuda
 
     def no_kernel():
         raise native_lib.BuildError("no kernel built")
@@ -288,7 +289,116 @@ def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kerne
         args = [torch.from_numpy(a).to(cuda_device) for a in _sw_batch(8, 8, 8, seed=0)]
         with pytest.raises(native_lib.BuildError):
             sw_cuda.sw_forward(*args, 1, -1, -2, -1, indel_boundary=False)
-    else:
+    elif kernel == "pdhmm":
         t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(8, 8, 8, seed=0).items()}
         with pytest.raises(native_lib.BuildError):
             pdhmm_cuda.pdhmm(**t)
+    elif kernel == "pairhmm_rows":
+        with pytest.raises(native_lib.BuildError):
+            pairhmm_cuda.pairhmm_rows(**chip_smoke.indexed_args(_dense_batch(8, 16, 8, seed=0)))
+    else:
+        with pytest.raises(native_lib.BuildError):
+            pairhmm_cols.pairhmm_cols(**chip_smoke.indexed_args(_dense_batch(8, 16, 8, seed=0)))
+
+
+def _dense_batch(R, H, P, seed):
+    """Ragged dense planes on the card, every sixth lane a random read."""
+    return chip_smoke.dense_batch(R, H, P, seed, mut=0.02, deep_every=6)
+
+
+def _assert_raw_agree(got, want):
+    """The same lanes below MIN_ACCEPTED (save lanes within 1e-5 of it in
+    log10), the others within 1e-5 in log10, and lanes on both sides."""
+    _, below = chip_smoke.compare_raw(got, want, "kernel vs twin", near=1e-5)
+    assert 0 < below < got.shape[0]
+
+
+@pytest.mark.parametrize("R,H,P", [(96, 320, 40), (200, 300, 24)],
+                         ids=["cols_regime", "relay_regime"])
+def test_cols_kernel_matches_twin(cuda_device, R, H, P):
+    """The column kernel against its twin on the same card tensors, ragged
+    lengths and deep lanes included, on reads in the ranges of both TPU
+    kernels it replaces (up to 128 rows, and longer), with the gap quals as
+    planes and as constants."""
+    from gkl_tpu_torch.ops import pairhmm_cols
+
+    planes = _dense_batch(R, H, P, seed=R)
+    t = chip_smoke.indexed_args(planes)
+    launches = pairhmm_cols.LAUNCHES
+    got = pairhmm_cols.pairhmm_cols(**t)
+    assert pairhmm_cols.LAUNCHES == launches + 1
+    _assert_raw_agree(got, pairhmm_cols.pairhmm_raw_cols(*planes))
+    del t["quals_u"]
+    got = pairhmm_cols.pairhmm_cols(**t, const_quals=(45, 45, 10))
+    planes = pairhmm_cuda.expand_indexed_planes(t["hap_u"], t["readq_u"], t["ridx"], t["hidx"],
+                                                const_quals=(45, 45, 10))
+    _assert_raw_agree(got, pairhmm_cols.pairhmm_raw_cols(*planes, t["haplen"], t["rslen"]))
+
+
+@pytest.mark.parametrize("const_quals", [None, (45, 45, 10)])
+def test_rows_kernel_matches_twin(cuda_device, const_quals):
+    """The rows kernel (the plain instance of the scaled kernel) against
+    ``pairhmm_raw`` on the same card tensors, with a read bucket that is not
+    a multiple of 8 and the gap quals as planes or as constants."""
+    from gkl_tpu_torch.ops import pairhmm as tops
+
+    t = chip_smoke.indexed_args(_dense_batch(124, 176, 48, seed=4))
+    if const_quals is not None:
+        del t["quals_u"]
+        t["const_quals"] = const_quals
+    launches = pairhmm_cuda.ROWS_LAUNCHES
+    got = pairhmm_cuda.pairhmm_rows(**t)
+    assert pairhmm_cuda.ROWS_LAUNCHES == launches + 1
+    planes = pairhmm_cuda.expand_indexed_planes(
+        t["hap_u"], t["readq_u"], t["ridx"], t["hidx"], const_quals=const_quals,
+        quals_u=t.get("quals_u"))
+    _assert_raw_agree(got, tops.pairhmm_raw(*planes, t["haplen"], t["rslen"], dtype="float32"))
+
+
+def test_api_long_haplotype_on_card(cuda_device):
+    """PairHMM on CUDA with haplotypes past PALLAS_MAX_HAP: the column
+    kernel runs on every group, reads of up to 128 rows and longer, and the
+    scaled kernel does not; the results, rescue included, match the exact
+    f64 oracle at 1e-4."""
+    from gkl_tpu_torch.ops import pairhmm_cols
+
+    rng = np.random.default_rng(21)
+    haps = [BASES[rng.integers(0, 4, n)] for n in (2100, 2400)]
+    rd = []
+    for i, n in enumerate((90, 120, 150, 140, 100, 60)):
+        h = haps[i % 2]
+        seq = h[int(rng.integers(0, len(h) - n)):][:n].copy()
+        rate = 0.3 if i == 3 else 0.02
+        mut = rng.random(n) < rate
+        seq[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+        rd.append(ReadData(seq, rng.integers(18, 46, n).astype(np.uint8),
+                           *(np.full(n, v, np.uint8) for v in (45, 45, 10))))
+    cols, scaled = pairhmm_cols.LAUNCHES, pairhmm_cuda.LAUNCHES
+    got = PairHMM(device=cuda_device).compute_likelihoods(rd, [HaplotypeData(h) for h in haps])
+    # read buckets 64, 96, 128 and 160 x 2 hap buckets
+    assert pairhmm_cols.LAUNCHES - cols == 8 and pairhmm_cuda.LAUNCHES == scaled
+    want = pairhmm_ref.pairhmm_scalar_batch(
+        [h for _ in rd for h in haps], [r.read_bases for r in rd for _ in haps],
+        [(r.read_quals, r.insertion_gop, r.deletion_gop, r.overall_gcp) for r in rd for _ in haps])
+    assert (want < -64).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_long_wrappers_validate_inputs(cuda_device):
+    """The rows and cols wrappers raise on a wrong dtype, a tensor on
+    another device or planes of mismatched shape."""
+    from gkl_tpu_torch.ops import pairhmm_cols
+
+    t = chip_smoke.indexed_args(_dense_batch(16, 24, 8, seed=1))
+    with pytest.raises(ValueError, match="quals_u"):
+        pairhmm_cols.pairhmm_cols(**dict(t, quals_u=t["quals_u"].to(torch.int32)))
+    with pytest.raises(ValueError, match="rslen"):
+        pairhmm_cols.pairhmm_cols(**dict(t, rslen=t["rslen"].cpu()))
+    with pytest.raises(ValueError, match="quals_u"):
+        pairhmm_cols.pairhmm_cols(**dict(t, quals_u=t["quals_u"][:, :8].contiguous()))
+    with pytest.raises(ValueError, match="ridx"):
+        pairhmm_cuda.pairhmm_rows(**dict(t, ridx=t["ridx"].to(torch.int64)))
+    with pytest.raises(ValueError, match="readq_u"):
+        pairhmm_cuda.pairhmm_rows(**dict(t, readq_u=t["readq_u"].cpu()))
+    with pytest.raises(ValueError, match="quals_u"):
+        pairhmm_cuda.pairhmm_rows(**dict(t, quals_u=t["quals_u"][:, :8].contiguous()))
