@@ -7,7 +7,8 @@ before printing any result.  Phases, one line each (or a few):
 
 0. device: name and power limit, torch and CUDA versions;
 1. build: the CUDA kernels (one nvcc per source, sm_90a, all started
-   together, linked into one library) and the host C++ libraries;
+   together, linked into one library) and the host C++ libraries, with
+   the registers and spills of each instance of the column kernel;
 2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
    shape (R=128, H=224, P=2048), with the gap quals as planes and as the
    GATK constants, both timed; and on a deep-lane batch;
@@ -48,14 +49,17 @@ before printing any result.  Phases, one line each (or a few):
     the scaled kernel's in-range lanes; the column kernel, one kernel for
     both TPU kernels it replaces, (b) at R=128, H=4,096, P=2,048 (the JAX
     cols kernel's read range) and (c) at the JAX package's long-read bench
-    shape, R=1,024, H=4,096, P=256 (its relay's range).  In-range lanes agree
+    shape, R=1,024, H=4,096, P=256 (its relay's range), each with the
+    launch's geometry (rows a thread, passes, warps).  In-range lanes agree
     within TOL_IN_RANGE in log10, and the lanes below MIN_ACCEPTED are the
-    same save lanes within TOL_IN_RANGE of it;
+    same save lanes within TOL_IN_RANGE of it; the lanes that differ from
+    the twin in any bit are counted (the twin runs the kernel's order);
 13. the long-haplotype active region through ``PairHMM.compute_likelihoods``
     (4 haplotypes of 2,300-5,000 bases, 4,096 short reads of 101 and 151
     bases, 64 long reads of 1,000-3,000): the slice's path, whose launches
-    are counted, timed median of 3 with reads/s.  A sample of every launch
-    is held against the f64 oracle, the rescued count against the lanes
+    are counted, timed median of 3 with reads/s, each launch's geometry and
+    time logged.  A sample of every launch is held against the f64 oracle,
+    the rescued count against the lanes
     below MIN_ACCEPTED, and the first launch of the column kernel with
     reads of up to 128 rows, and the first with longer reads, against its
     twin on the same tensors.
@@ -79,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -338,9 +343,38 @@ def phase_build():
         t0 = time.perf_counter()
         native_lib.load(name)
         log("1 build", library=name, seconds=round(time.perf_counter() - t0, 3))
-    for line in cuda_build.build_log().splitlines():
+    build_log = cuda_build.build_log()
+    for line in build_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log("1 build", ptxas=line.strip().replace(" ", "_"))
+    from gkl_tpu_torch.ops import pairhmm_cols
+    instances = cols_instances(build_log)
+    for rows in pairhmm_cols.ROWS_PER_THREAD:
+        if rows not in instances:
+            raise AssertionError(f"no pairhmm_cols instance for {rows} rows a thread in the "
+                                 f"ptxas log")
+        log("1 build", kernel="pairhmm_cols", rows_per_thread=rows, **instances[rows])
+
+
+def cols_instances(build_log: str) -> dict:
+    """Registers and spill bytes of each instance of the column kernel, by
+    rows a thread, from the ``-Xptxas -v`` messages."""
+    found, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        rows = re.search(r"pairhmm_cols_kernelILi(\d+)E", name or "")
+        if rows is None:
+            continue
+        entry = found.setdefault(int(rows.group(1)), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry.update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return found
 
 
 def phase_kernel_vs_twin():
@@ -1142,21 +1176,32 @@ def phase_long_kernels():
             return pairhmm_cols.pairhmm_raw_cols(planes[0], planes[1], planes[2] + i % 3,
                                                  *planes[3:])
 
-        k_out = kernel(0)
-        err, below = compare_raw(k_out, twin(0), f"column kernel vs twin, {what}",
+        k_out, t_out = kernel(0), twin(0)
+        err, below = compare_raw(k_out, t_out, f"column kernel vs twin, {what}",
                                  near=TOL_IN_RANGE)
         ms, plain_ms = cuda_ms(kernel, iters), cuda_ms(twin, 1)
         cells = lane_cells(t["haplen"], t["rslen"])
         b = bound("pairhmm_cols", nbytes(*t.values(), k_out), cells, int(t["haplen"].sum()))
         log(f"{what} cols_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}",
-            range_of=f"pairhmm_pallas_cols.{jax_kernel}", max_abs_log10_err=err,
+            range_of=f"pairhmm_pallas_cols.{jax_kernel}", **cols_launch_geometry(t),
+            max_abs_log10_err=err, lanes_not_bit_equal=int((k_out != t_out).sum()),
             lanes_below_min_accepted=below, kernel_ms=ms, twin_ms=plain_ms,
             kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6, **b)
         if cols_entry is None:
             cols_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
         cols_entry["max_abs_err"] = max(cols_entry["max_abs_err"], err)
-        del planes, t, variants, k_out
+        del planes, t, variants, k_out, t_out
     return rows_entry, cols_entry, rows_launches
+
+
+def cols_launch_geometry(t) -> dict:
+    """Rows a thread, rows a pass, passes and warps (one a lane) of a
+    column-kernel launch on the indexed batch ``t``."""
+    from gkl_tpu_torch.ops import pairhmm_cols
+
+    rows, pass_rows, passes = pairhmm_cols.cols_geometry(t["readq_u"].shape[1])
+    return {"rows_per_thread": rows, "pass_rows": pass_rows, "passes": passes,
+            "warps": t["ridx"].shape[0]}
 
 
 def long_region(seed=0):
@@ -1295,14 +1340,23 @@ def phase_long_region():
         planes = pairhmm_cuda.expand_indexed_planes(
             t["hap_u"], t["readq_u"], t["ridx"], t["hidx"], const_quals=t.get("const_quals"),
             quals_u=t.get("quals_u"))
-        err, n_below = compare_raw(
-            out, pairhmm_cols.pairhmm_raw_cols(*planes, t["haplen"], t["rslen"]),
-            f"column kernel vs twin on the path, {shape}", near=TOL_IN_RANGE)
+        t_out = pairhmm_cols.pairhmm_raw_cols(*planes, t["haplen"], t["rslen"])
+        err, n_below = compare_raw(out, t_out, f"column kernel vs twin on the path, {shape}",
+                                   near=TOL_IN_RANGE)
         log("13 long_region_kernel_vs_twin", shape=shape,
             range_of="pairhmm_pallas_cols." + ("_kernel" if in_cols_range else "_kernel_relay"),
-            max_abs_log10_err=err, lanes_below_min_accepted=n_below)
+            max_abs_log10_err=err, lanes_not_bit_equal=int((out != t_out).sum()),
+            lanes_below_min_accepted=n_below)
         twin_err = max(twin_err, err)
-        del planes
+        del planes, t_out
+    # each launch's geometry and device time beside its bound
+    for t, out, s, e in calls:
+        tensors = [v for v in t.values() if isinstance(v, torch.Tensor)]
+        log("13 long_region_launch",
+            shape=f"R{t['readq_u'].shape[1]}_H{t['hap_u'].shape[0]}_P{t['ridx'].shape[0]}",
+            **cols_launch_geometry(t), kernel_ms=s.elapsed_time(e),
+            **bound("pairhmm_cols", nbytes(*tensors, out), lane_cells(t["haplen"], t["rslen"]),
+                    int(t["haplen"].sum())))
     del calls
     # a sample of every launch (8 evenly spaced lanes) against the oracle
     flat = lik.ravel()
@@ -1410,7 +1464,9 @@ def main(argv) -> int:
         ("sw_forward", "sw_forward.cu", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
         ("pdhmm", "pdhmm.cu", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
     ]
-    notes = {"pairhmm_cols": "one kernel for both TPU kernels, no regime switch"}
+    notes = {"pairhmm_cols": "a warp per lane on an anti-diagonal wavefront, 4, 8 or 16 read "
+                             "rows a thread in passes of 32 strips; one kernel for both TPU "
+                             "kernels"}
     # no single PyTorch call computes a PairHMM, PDHMM or SW forward
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{source}",

@@ -4,8 +4,9 @@ The active-region kernels of GATK on an NVIDIA Hopper GPU, under the public
 names of ``gkl_tpu``: the PairHMM forward likelihood, Smith-Waterman
 realignment and the PDHMM forward likelihood, each backed by a hand-written
 CUDA kernel (``csrc/*.cu``) with a plain PyTorch twin for CPU tensors; the
-host f64 rescues and the CIGAR walk on the JAX package's native C++
-(compiled by path); and the BAM streaming and region pipelines.  Module
+host f64 rescues and the CIGAR walk on the port's byte-identical copy of
+the JAX package's native C++ (``native/``); and the BAM streaming and
+region pipelines.  Module
 names mirror ``gkl_tpu``'s.  This package imports neither JAX nor
 ``gkl_tpu``.
 """

@@ -10,7 +10,8 @@ Parity with IntelPDHMM (``pdhmm/IntelPDHMM.java:46-220``):
 Engines: on ``PDHMM.device`` (CUDA by default) the float32 CUDA kernel
 ``csrc/pdhmm.cu`` over deduplicated, memory-budgeted lane slices, with
 every lane below ``MIN_ACCEPTED`` recomputed on the host's exact f64 oracle
-(``gkl_tpu/native/pdhmm_oracle.cc``, compiled by path) — the reference's
+(``gkl_tpu_torch/native/pdhmm_oracle.cc``, a byte-identical copy of
+``gkl_tpu/native/pdhmm_oracle.cc``) — the reference's
 float-then-double pattern (pairhmm/IntelPairHmm.cc:157-165).  With
 ``device="cpu"`` the kernel's plain twin takes its place.  The
 double-precision mode and ``KernelLevel.SCALAR`` run the oracle alone.

@@ -6,8 +6,8 @@ Parity with IntelSmithWaterman (``smithwaterman/IntelSmithWaterman.java:44-191``
 O(n*m) score and backtrack DP runs lane-batched on ``SmithWaterman.device``
 (the CUDA kernel ``csrc/sw_forward.cu``; its plain twin when the caller asks
 for ``device="cpu"``); the O(n+m) maximum selection and CIGAR walk run in
-the JAX package's native runtime ``gkl_tpu/native/sw_runtime.cc``, compiled
-by path.  Pairs whose backtrack exceeds the device budget even at the
+the native runtime ``gkl_tpu_torch/native/sw_runtime.cc``, a byte-identical
+copy of the JAX package's ``gkl_tpu/native/sw_runtime.cc``.  Pairs whose backtrack exceeds the device budget even at the
 minimum lane padding go to that runtime's threaded scalar aligner.
 """
 

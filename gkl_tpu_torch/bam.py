@@ -2,7 +2,8 @@
 
 BGZF blocks are inflated by the parallel native codec (``compression.py``)
 and alignment records are decoded by the native record scanner
-(``gkl_tpu/native/bam_scan.cc``, compiled by path) into numpy arrays ready
+(``gkl_tpu_torch/native/bam_scan.cc``, a byte-identical copy of
+``gkl_tpu/native/bam_scan.cc``) into numpy arrays ready
 for the batch planner.  Only the fields the kernels need are decoded: name,
 flag, position, cigar, sequence and qualities.
 """

@@ -3,8 +3,9 @@
 
 BAM files are streams of gzip members carrying a ``BC`` extra subfield with
 the compressed block size (SAM spec §4.1).  Members are split here and
-inflated in parallel by the host native codec (``gkl_tpu/native/codec.cc``,
-compiled by path), which also computes each block's CRC32 while the payload
+inflated in parallel by the host native codec (``gkl_tpu_torch/native/codec.cc``,
+a byte-identical copy of ``gkl_tpu/native/codec.cc``), which also computes
+each block's CRC32 while the payload
 is cache-hot.  Every block's CRC32 and size are verified.
 """
 

@@ -1,7 +1,7 @@
 // What the PairHMM kernels share (pairhmm_scaled.cu's two instances and
 // pairhmm_cols.cu): the constants of the recurrence, the exact context
 // tables in shared memory, a lane's per-row transition probabilities, and
-// the block size of a launch.
+// the block size of a row-kernel launch.
 #pragma once
 
 #include <cstdint>
@@ -60,8 +60,8 @@ __device__ __forceinline__ Row row_of(const Tables& t, const uint8_t* __restrict
   return w;
 }
 
-// One thread per lane; with fewer lanes than the card has SMs x 2 blocks,
-// smaller blocks spread them over more SMs.
+// The row kernels run one thread per lane; with fewer lanes than the card
+// has SMs x 2 blocks, smaller blocks spread them over more SMs.
 inline int block_for(int P) {
   int block = 128;
   while (block > 32 && (P + block - 1) / block < 264) block >>= 1;

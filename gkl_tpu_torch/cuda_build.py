@@ -50,24 +50,27 @@ def nvcc_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gkl_pairhmm_scaled.argtypes = [
+    # the three PairHMM kernels take an indexed batch and the tables
+    indexed = [
         vp, i32, i32,            # hap_u (H, nu_h)
         vp, i32, i32,            # readq_u (2, R, nu_r)
         vp, i32, i32, i32,       # quals_u (3, R, nu_r) or NULL; constant iq, dq, gcp
         vp, vp, vp, vp, i32,     # ridx, hidx, haplen, rslen; P
         vp, vp,                  # ph2pr (128,), match-to-match (8256,)
+    ]
+    lib.gkl_pairhmm_scaled.argtypes = indexed + [
         vp, vp, vp, vp,          # M, X, Y (H, P) f32 scratch; live (H, P) u8
         vp,                      # out (3, P) i32: mantissa bits, exp2, flag
         vp,                      # cudaStream_t
     ]
-    # the rows kernel and the column kernel take the same arguments
-    lib.gkl_pairhmm_rows.argtypes = lib.gkl_pairhmm_cols.argtypes = [
-        vp, i32, i32,            # hap_u (H, nu_h)
-        vp, i32, i32,            # readq_u (2, R, nu_r)
-        vp, i32, i32, i32,       # quals_u (3, R, nu_r) or NULL; constant iq, dq, gcp
-        vp, vp, vp, vp, i32,     # ridx, hidx, haplen, rslen; P
-        vp, vp,                  # ph2pr (128,), match-to-match (8256,)
-        vp, vp, vp,              # M, X, Y (H, P) f32 scratch (cols: the boundary row)
+    lib.gkl_pairhmm_rows.argtypes = indexed + [
+        vp, vp, vp,              # M, X, Y (H, P) f32 scratch
+        vp,                      # out (P,) f32
+        vp,                      # cudaStream_t
+    ]
+    lib.gkl_pairhmm_cols.argtypes = indexed + [
+        vp, vp, vp,              # M, X, Y (H, P) f32: the boundary row between passes
+        i32,                     # rows per thread: 4, 8 or 16
         vp,                      # out (P,) f32
         vp,                      # cudaStream_t
     ]

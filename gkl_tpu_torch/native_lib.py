@@ -1,10 +1,12 @@
 """Host C++ runtime loader — counterpart of ``gkl_tpu/native_lib.py``.
 
-The port reuses the JAX package's C++ sources as they are: they are read by
-path from ``gkl_tpu/native/`` (never imported) and compiled with g++ on
-first use into ``build/gkl_tpu_torch/`` under the repository root, keyed by
-a hash of the sources, flags and host CPU.  Unlike the JAX package, a failed
-build raises: the port has no pure-Python fallbacks for these libraries.
+The port keeps its own byte-identical copy of the JAX package's C++ runtime
+sources in ``gkl_tpu_torch/native/`` (the originals are in
+``gkl_tpu/native/``; the port reads nothing there) and compiles them with
+g++ on first use into ``build/gkl_tpu_torch/`` under the repository root,
+keyed by a hash of the sources, flags and host CPU.  Unlike the JAX
+package, a failed build raises: the port has no pure-Python fallbacks for
+these libraries.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import threading
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "gkl_tpu_torch")
-NATIVE_SRC_DIR = os.path.join(REPO_ROOT, "gkl_tpu", "native")
+NATIVE_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 
 _SRC = {
     "gkl_codec": ["codec.cc", "deflate_fast.cc", "inflate_fast.cc"],

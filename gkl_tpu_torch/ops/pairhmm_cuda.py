@@ -261,7 +261,8 @@ def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
             H, nu_h, R, nu_r, P, out, *extra):
     """Launch one of the PairHMM kernels (``fn``: an instance of the row
     kernel, or the column kernel) on an indexed batch's CUDA tensors, with
-    fresh (H, P) M/X/Y scratch plus ``extra`` scratch, into ``out``."""
+    fresh (H, P) M/X/Y scratch, into ``out``.  ``extra`` (scratch tensors,
+    or ints) go between the scratch and ``out``."""
     device = hap_u.device
     ph2pr, m2m = _device_tables(device)
     Ms = torch.empty((H, P), dtype=torch.float32, device=device)
@@ -276,7 +277,8 @@ def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
         int(ciq), int(cdq), int(cgcp),
         ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
         ph2pr.data_ptr(), m2m.data_ptr(),
-        Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(), *(t.data_ptr() for t in extra),
+        Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(),
+        *(t.data_ptr() if isinstance(t, torch.Tensor) else t for t in extra),
         out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")

@@ -3,8 +3,9 @@
 Counterpart of ``gkl_tpu/ops/pairhmm_ref.py``.  The reference recomputes
 only the underflowed pair in double (``pairhmm/IntelPairHmm.cc:157-165``);
 :func:`pairhmm_scalar_batch` is that rescue engine: the threaded exact-f64
-DP of ``gkl_tpu/native/pairhmm_oracle.cc`` (compiled by path, see
-``native_lib``) over a compacted lane batch.  :func:`pairhmm_scalar` is the
+DP of ``gkl_tpu_torch/native/pairhmm_oracle.cc`` (a byte-identical copy of
+``gkl_tpu/native/pairhmm_oracle.cc``, built by ``native_lib``) over a
+compacted lane batch.  :func:`pairhmm_scalar` is the
 per-pair Python oracle the native DP is pinned against.
 """
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``gkl_tpu/ops/pdhmm_ref.py``.  :func:`pdhmm_scalar` is the
 per-pair Python oracle (the same code); :func:`pdhmm_scalar_batch` runs the
-threaded exact-f64 DP of ``gkl_tpu/native/pdhmm_oracle.cc`` (compiled by
-path, see ``native_lib``), the engine of the double-precision mode, of
+threaded exact-f64 DP of ``gkl_tpu_torch/native/pdhmm_oracle.cc`` (a
+byte-identical copy of ``gkl_tpu/native/pdhmm_oracle.cc``, built by
+``native_lib``), the engine of the double-precision mode, of
 ``KernelLevel.SCALAR`` and of the rescue of lanes below ``MIN_ACCEPTED``.
 Direct re-derivation of the serial recurrence in
 ``src/main/native/pdhmm/pdhmm-serial.cc:279-412``: a PairHMM with three

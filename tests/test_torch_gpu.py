@@ -313,16 +313,59 @@ def _assert_raw_agree(got, want):
     assert 0 < below < got.shape[0]
 
 
-@pytest.mark.parametrize("R,H,P", [(96, 320, 40), (200, 300, 24)],
-                         ids=["cols_regime", "relay_regime"])
-def test_cols_kernel_matches_twin(cuda_device, R, H, P):
+def _set_lanes(planes, lanes, rslen=None, haplen=None):
+    """Lengths given for some lanes; the deep lanes (every sixth, from
+    lane 0) are best left alone, so that some lanes stay below
+    MIN_ACCEPTED."""
+    for i, values in ((7, rslen), (6, haplen)):
+        if values is not None:
+            planes[i][torch.tensor(lanes, device=planes[i].device)] = torch.tensor(
+                values, dtype=torch.int32, device=planes[i].device)
+    return planes
+
+
+def _cols_case(case):
+    """Dense card planes for the column kernel: the regimes of both TPU
+    kernels it replaces, and the edges of its warp wavefront."""
+    if case == "cols_regime":
+        return _dense_batch(96, 320, 40, seed=96)
+    if case == "relay_regime":
+        return _dense_batch(200, 300, 24, seed=200)
+    if case == "pass_edge_4_rows":  # one pass of 128 rows
+        return _set_lanes(_dense_batch(128, 180, 16, seed=1), [0, 1, 2, 3],
+                          rslen=[128, 127, 97, 1])
+    if case == "pass_edge_8_rows":  # one pass of 256 rows
+        return _set_lanes(_dense_batch(256, 350, 16, seed=2), [0, 1, 2], rslen=[256, 255, 129])
+    if case == "pass_edges_16_rows":  # three passes of 512 rows
+        return _set_lanes(_dense_batch(1056, 1420, 16, seed=3), [0, 1, 2, 3, 4, 5],
+                          rslen=[512, 513, 1024, 1025, 1056, 511])
+    if case == "one_row_one_column":
+        return _set_lanes(_dense_batch(128, 180, 24, seed=4), [1, 2, 3], rslen=[1, 40, 1],
+                          haplen=[60, 1, 1])
+    if case == "lengths_10x":  # the odd lanes 10x shorter in both lengths
+        odd = list(range(1, 16, 2))
+        return _set_lanes(_dense_batch(640, 860, 16, seed=5), odd, rslen=[60] * 8,
+                          haplen=[85] * 8)
+    # 'N' in reads and haplotypes
+    planes = _dense_batch(96, 128, 24, seed=6)
+    planes[1][5, :8] = planes[1][40:44, 3] = ord("N")
+    planes[0][10, 4:12] = planes[0][50:60, 3] = ord("N")
+    return planes
+
+
+@pytest.mark.parametrize("case", [
+    "cols_regime", "relay_regime", "pass_edge_4_rows", "pass_edge_8_rows", "pass_edges_16_rows",
+    "one_row_one_column", "lengths_10x", "n_bases"])
+def test_cols_kernel_matches_twin(cuda_device, case):
     """The column kernel against its twin on the same card tensors, ragged
     lengths and deep lanes included, on reads in the ranges of both TPU
-    kernels it replaces (up to 128 rows, and longer), with the gap quals as
+    kernels it replaces (up to 128 rows, and longer), at rslen on and just
+    past its pass edges, a 1-row read and a 1-column haplotype, lanes whose
+    lengths differ 10x in one launch, and 'N' bases, with the gap quals as
     planes and as constants."""
     from gkl_tpu_torch.ops import pairhmm_cols
 
-    planes = _dense_batch(R, H, P, seed=R)
+    planes = _cols_case(case)
     t = chip_smoke.indexed_args(planes)
     launches = pairhmm_cols.LAUNCHES
     got = pairhmm_cols.pairhmm_cols(**t)
@@ -333,6 +376,25 @@ def test_cols_kernel_matches_twin(cuda_device, R, H, P):
     planes = pairhmm_cuda.expand_indexed_planes(t["hap_u"], t["readq_u"], t["ridx"], t["hidx"],
                                                 const_quals=(45, 45, 10))
     _assert_raw_agree(got, pairhmm_cols.pairhmm_raw_cols(*planes, t["haplen"], t["rslen"]))
+
+
+def test_cols_kernel_malformed_lanes_beside_good_ones(cuda_device):
+    """Lanes with an out-of-range length or index get NaN, and the other
+    lanes of their blocks (1,056 lanes: blocks of four warps, a lane each)
+    keep their results bit for bit."""
+    from gkl_tpu_torch.ops import pairhmm_cols
+
+    t = chip_smoke.indexed_args(_dense_batch(32, 48, 1056, seed=7))
+    good = pairhmm_cols.pairhmm_cols(**t)
+    bad = dict(t, haplen=t["haplen"].clone(), rslen=t["rslen"].clone(), ridx=t["ridx"].clone())
+    bad["haplen"][1] = 49
+    bad["rslen"][6] = 0
+    bad["ridx"][1030] = 1056
+    got = pairhmm_cols.pairhmm_cols(**bad)
+    nan = torch.zeros(1056, dtype=torch.bool, device=cuda_device)
+    nan[[1, 6, 1030]] = True
+    assert torch.isnan(got[nan]).all()
+    assert torch.equal(got[~nan], good[~nan]) and torch.isfinite(good).all()
 
 
 @pytest.mark.parametrize("const_quals", [None, (45, 45, 10)])

@@ -147,8 +147,8 @@ def test_read_bam_streaming_matches_whole_file(limit):
 
 
 def test_native_oracle_matches_python():
-    """The threaded native f64 oracle, compiled by path from the JAX
-    package's C++, is bit-identical to the per-pair Python oracle."""
+    """The threaded native f64 oracle, built from the port's copy of the
+    JAX package's C++, is bit-identical to the per-pair Python oracle."""
     rng = np.random.default_rng(11)
     bases = np.frombuffer(b"ACGTN", np.uint8)
     haps, reads, quals = [], [], []

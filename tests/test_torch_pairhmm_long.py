@@ -98,6 +98,47 @@ def test_relay_twin_matches_pallas_relay(case, r_chunk):
     np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
+@pytest.mark.parametrize("R,H,r_chunk", [(16, 12, 8), (20, 9, 8), (24, 30, 8), (40, 17, 16),
+                                         (33, 5, 12)])
+def test_twin_passes_do_not_change_the_result(R, H, r_chunk):
+    """The twin in read chunks of a small pass height, R spanning 2-3 of
+    them, is bit for bit the twin in one chunk: the kernel's passes carry
+    the same f32 values its registers would, and the twin runs the
+    kernel's order.  Ragged lanes, 'N' in reads and haplotypes."""
+    rng = np.random.default_rng(R * H)
+    P = 12
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    hap = acgtn[rng.integers(0, 5, size=(H, P))]
+    read = hap[np.arange(R) % H].copy()
+    mut = rng.random((R, P)) < 0.1
+    read[mut] = acgtn[rng.integers(0, 5, size=int(mut.sum()))]
+    quals = [rng.integers(lo, 45, size=(R, P)).astype(np.uint8) for lo in (10, 25, 25)]
+    rslen = rng.integers(1, R + 1, P).astype(np.int32)
+    rslen[:4] = [R, r_chunk, r_chunk + 1, 1]
+    t = _t((hap, read, *quals, np.full((R, P), 10, np.uint8),
+            rng.integers(1, H + 1, P).astype(np.int32), rslen))
+    assert 2 <= -(-R // r_chunk) <= 3
+    whole = pairhmm_cols.pairhmm_raw_cols(*t)
+    assert torch.isfinite(whole).all() and (whole > 0).all()
+    assert torch.equal(pairhmm_cols.pairhmm_raw_cols(*t, r_chunk=r_chunk), whole)
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 128), (129, 1024), (1025, 8192)])
+def test_cols_geometry_covers_every_read_bucket(lo, hi):
+    """Every read bucket gets one of the kernel's instances, a pass of 32
+    strips of its rows, and enough passes to cover the bucket; reads of up
+    to 128 rows run in one pass."""
+    for R in range(lo, hi + 1):
+        rows, pass_rows, passes = pairhmm_cols.cols_geometry(R)
+        assert rows in pairhmm_cols.ROWS_PER_THREAD
+        assert pass_rows == 32 * rows
+        assert passes * pass_rows >= R > (passes - 1) * pass_rows
+        if R <= 128:
+            assert (rows, passes) == (4, 1)
+    with pytest.raises(ValueError):
+        pairhmm_cols.cols_geometry(0)
+
+
 def test_relay_twin_one_chunk_is_cols_twin():
     """A chunk that covers the whole read is the plain cols sweep, bit for
     bit (the JAX package pins the same of its two kernels)."""

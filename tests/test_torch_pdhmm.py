@@ -385,7 +385,7 @@ def test_pdhmm_context_bit_equal(dtype):
 
 def test_oracles_equal_jax():
     """The port's Python oracle and native batch oracle (the JAX package's
-    C++ compiled by path) equal the JAX package's, bit for bit."""
+    port's copy of the C++) equal the JAX package's, bit for bit."""
     from gkl_tpu.ops import pdhmm_ref as jref
 
     cases = golden.load_pdhmm_cases("pdhmm_syn_990_1_2.txt")[:40]
