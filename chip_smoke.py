@@ -8,18 +8,23 @@ before printing any result.  Phases, one line each (or a few):
 0. device: name and power limit, torch and CUDA versions;
 1. build: the CUDA kernels (one nvcc per source, sm_90a, all started
    together, linked into one library) and the host C++ libraries, with
-   the registers and spills of each instance of the column kernel;
+   the registers and spills of both instances of the row kernel and of
+   each instance of the column kernel;
 2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
    shape (R=128, H=224, P=2048), with the gap quals as planes and as the
-   GATK constants, both timed; and on a deep-lane batch;
+   GATK constants, both timed; and on a deep-lane batch.  Each is also held
+   against the twin in the kernel's order bit for bit (mantissa, exp2 and
+   flag of every lane);
 3. the 104 PairHMM golden cases through ``PairHMM()`` in both precision
    modes;
 4. the BAM pipeline against ``tests/data/pipeline_golden.txt``;
 5. a GATK-scale active region (10,240 reads x 8 haplotypes) through
    ``PairHMM.compute_likelihoods``, checked against the f64 oracle — the
-   PairHMM path's run whose kernel launches are counted.  Each of its
-   kernel outputs is held against the twin on the same batch, and the
-   rescue is recounted lane by lane from them;
+   PairHMM path's run whose kernel launches are counted and timed (CUDA
+   events around each).  Each of its kernel outputs is held against the
+   twin on the same batch, the largest also against the kernel-order twin
+   bit for bit, and the rescue is recounted lane by lane from them; the
+   warps' padding (steps run / steps needed) is logged;
 6. long PairHMM pairs (H=4096, R=300, the column kernel) against the f64
    oracle;
 7. Smith-Waterman kernel vs twin, bit for bit on the region the host walk
@@ -40,13 +45,15 @@ before printing any result.  Phases, one line each (or a few):
     -> argmax -> ``SmithWaterman.align_batch`` ->
     ``PDHMM.compute_likelihoods``): the main path, whose launches of all
     three kernels are counted, checked against the oracles as
-    ``gkl_tpu/validation.py::check_corpus`` does, timed median of 3.  Each
-    SW and PDHMM launch of its first run is held against the twin on the
-    same tensors, at the shapes the path gave it;
+    ``gkl_tpu/validation.py::check_corpus`` does, timed median of 3 (the
+    first run's PairHMM launches also by CUDA events).  Each SW and PDHMM
+    launch of its first run is held against the twin on the same tensors,
+    at the shapes the path gave it;
 12. the long-haplotype kernels vs their twins, timed: (a) the rows kernel
     (the scaled kernel's plain instance) through ``PairHMM._raw_batch``,
     the dense batch's entry point, at phase 2's shape, also held against
-    the scaled kernel's in-range lanes; the column kernel, one kernel for
+    the scaled kernel's in-range lanes and bit for bit against the twin in
+    the kernel's order; the column kernel, one kernel for
     both TPU kernels it replaces, (b) at R=128, H=4,096, P=2,048 (the JAX
     cols kernel's read range) and (c) at the JAX package's long-read bench
     shape, R=1,024, H=4,096, P=256 (its relay's range), each with the
@@ -273,6 +280,34 @@ def twin_of(t):
     return pc.pairhmm_raw_scaled_reference(*planes, t["haplen"], t["rslen"])
 
 
+def twin_in_kernel_order(t, scaled=True):
+    """The kernel-order twin's output of a ``device_batch``: (mantissa,
+    exp2, flag), or with ``scaled=False`` the plain instance's raw f32."""
+    from gkl_tpu_torch.ops import pairhmm_cuda as pc
+
+    planes = pc.expand_indexed_planes(t["hap_u"], t["readq_u"], t["ridx"], t["hidx"],
+                                      const_quals=t.get("const_quals"),
+                                      quals_u=t.get("quals_u"))
+    return pc.pairhmm_raw_scaled_kernel_order(*planes, t["haplen"], t["rslen"], scaled=scaled)
+
+
+def lanes_not_bit_equal(kernel_out, twin_out, what) -> int:
+    """Hold a scaled-kernel result (its (3, P) int32 tensor or array)
+    against the kernel-order twin's (mantissa, exp2, flag), bit for bit:
+    raises if any lane differs in any bit of mantissa, exp2 or flag;
+    returns 0."""
+    import torch
+
+    k = torch.as_tensor(kernel_out).cpu()
+    tm, te, tf = (x.cpu() for x in twin_out)
+    t = torch.stack([tm.view(torch.int32), te, tf])
+    differ = int((k != t).any(dim=0).sum())
+    if differ:
+        raise AssertionError(f"kernel vs kernel-order twin, {what}: {differ} lanes differ "
+                             f"in mantissa, exp2 or flag")
+    return differ
+
+
 def compare_to_twin(kernel_out, twin_out, what, n=None):
     """Hold a kernel result (mantissa, exp2, flag) against its plain twin's
     on the same inputs, over the first ``n`` lanes: lanes the twin puts in
@@ -292,6 +327,22 @@ def compare_to_twin(kernel_out, twin_out, what, n=None):
         raise AssertionError(f"kernel vs twin, {what}: kernel misses {missed} twin flags")
     return err, {"lanes_in_range": int(in_range.sum()), "flags_kernel": int((kf != 0).sum()),
                  "flags_twin": int((tf != 0).sum())}
+
+
+def timed(fn, events):
+    """``fn`` with CUDA events recorded around each call into ``events``
+    (device time of the launches it enqueues)."""
+    import torch
+
+    def call(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return call
 
 
 def cuda_ms(fn, iters):
@@ -348,26 +399,32 @@ def phase_build():
         if "entry function" in line or "registers" in line or "spill" in line:
             log("1 build", ptxas=line.strip().replace(" ", "_"))
     from gkl_tpu_torch.ops import pairhmm_cols
-    instances = cols_instances(build_log)
+    row_instances = kernel_instances(build_log, r"pairhmm_kernelILb([01])E")
+    for flag, kernel in (("1", "pairhmm_scaled"), ("0", "pairhmm_rows")):
+        if flag not in row_instances:
+            raise AssertionError(f"no {kernel} instance in the ptxas log")
+        log("1 build", kernel=kernel, **row_instances[flag])
+    instances = kernel_instances(build_log, r"pairhmm_cols_kernelILi(\d+)E")
     for rows in pairhmm_cols.ROWS_PER_THREAD:
-        if rows not in instances:
+        if str(rows) not in instances:
             raise AssertionError(f"no pairhmm_cols instance for {rows} rows a thread in the "
                                  f"ptxas log")
-        log("1 build", kernel="pairhmm_cols", rows_per_thread=rows, **instances[rows])
+        log("1 build", kernel="pairhmm_cols", rows_per_thread=rows, **instances[str(rows)])
 
 
-def cols_instances(build_log: str) -> dict:
-    """Registers and spill bytes of each instance of the column kernel, by
-    rows a thread, from the ``-Xptxas -v`` messages."""
+def kernel_instances(build_log: str, pattern: str) -> dict:
+    """Registers and spill bytes of each instance of a templated kernel,
+    keyed by the template argument that ``pattern``'s group captures from
+    the mangled entry name, from the ``-Xptxas -v`` messages."""
     found, name = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-        rows = re.search(r"pairhmm_cols_kernelILi(\d+)E", name or "")
-        if rows is None:
+        arg = re.search(pattern, name or "")
+        if arg is None:
             continue
-        entry = found.setdefault(int(rows.group(1)), {})
+        entry = found.setdefault(arg.group(1), {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             entry.update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
@@ -406,13 +463,17 @@ def phase_kernel_vs_twin():
         what = f"bench shape, {next(iter(quals))}"
         k_out = kernel(0)
         err, flags = compare_to_twin(pc.unpack(k_out), twin(0), what)
+        planes = pc.expand_indexed_planes(hap, variants[0], lanes, lanes, **quals)
+        not_bit_equal = lanes_not_bit_equal(
+            k_out, pc.pairhmm_raw_scaled_kernel_order(*planes, haplen, rslen), what)
         if flags["lanes_in_range"] != P:
             raise AssertionError(f"{what}: {P - flags['lanes_in_range']} lanes out of f32 range")
         ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(twin, 5)
         b = bound("pairhmm_scaled", nbytes(hap, variants[0], lanes, lanes, haplen, rslen,
                                            quals.get("quals_u"), k_out), cells, H * P)
         log("2 kernel_vs_twin", shape=f"R{R}_H{H}_P{P}", quals=next(iter(quals)),
-            max_abs_log10_err=err, **flags, kernel_ms=ms, twin_ms=plain_ms,
+            max_abs_log10_err=err, **flags, lanes_not_bit_equal_kernel_order=not_bit_equal,
+            kernel_ms=ms, twin_ms=plain_ms,
             kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6, **b)
         return err, ms, plain_ms, b
 
@@ -434,7 +495,9 @@ def phase_kernel_vs_twin():
         haps, [r.read_bases for r in rd],
         [(r.read_quals, r.insertion_gop, r.deletion_gop, r.overall_gcp) for r in rd])
     t = device_batch(pk, dev)
-    km, ke, kf = (x.cpu().numpy()[: pk.n_real] for x in pc.unpack(pc.pairhmm_scaled(**t)))
+    k_out = pc.pairhmm_scaled(**t)
+    not_bit_equal = lanes_not_bit_equal(k_out, twin_in_kernel_order(t), "deep lanes")
+    km, ke, kf = (x.cpu().numpy()[: pk.n_real] for x in pc.unpack(k_out))
     tm, te, tf = (x.cpu().numpy()[: pk.n_real] for x in twin_of(t))
     nh = len(haps)
     exact = oracle([haps[j] for _ in rd for j in range(nh)], [r for r in rd for _ in range(nh)])
@@ -450,7 +513,7 @@ def phase_kernel_vs_twin():
     log("2 kernel_vs_twin", shape="deep", lanes=pk.n_real, min_log10=float(exact.min()),
         max_abs_log10_kernel_vs_twin=kernel_vs_twin, flags_kernel=int((kf != 0).sum()),
         flags_twin=int((tf != 0).sum()), twin_only_flags=int(missed.sum()),
-        unflagged_vs_f64=trusted_err)
+        unflagged_vs_f64=trusted_err, lanes_not_bit_equal_kernel_order=not_bit_equal)
     if trusted_err > TOL_ORACLE:
         raise AssertionError(f"unflagged deep lanes vs f64: {trusted_err:.3e}")
     if missed_bad.any():
@@ -523,16 +586,23 @@ def phase_active_region():
     nr, nh = len(rd), len(hd)
     cells = sum(len(r.read_bases) for r in rd) * sum(len(h) for h in haps)
     hmm = RecordingPairHMM()
+    real_scaled, events = pairhmm_cuda.pairhmm_scaled, []
     os.environ.pop("GKL_TPU_RESCUE", None)  # the default (flagged) policy
     os.environ["GKL_TPU_METRICS"] = "1"
     profiling.METRICS.reset()
     pairhmm_cuda.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lik = hmm.compute_likelihoods(rd, hd).reshape(nr, nh)
-    wall = time.perf_counter() - t0
+    pairhmm_cuda.pairhmm_scaled = timed(real_scaled, events)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lik = hmm.compute_likelihoods(rd, hd).reshape(nr, nh)
+        wall = time.perf_counter() - t0
+    finally:
+        pairhmm_cuda.pairhmm_scaled = real_scaled
     launches = pairhmm_cuda.LAUNCHES
-    rescued = profiling.METRICS.snapshot().get("pairhmm_rescue", {}).get("items", 0)
+    kernel_ms = sum(s.elapsed_time(e) for s, e in events)
+    rescue_metric = profiling.METRICS.snapshot().get("pairhmm_rescue", {})
+    rescued = rescue_metric.get("items", 0)
     os.environ.pop("GKL_TPU_METRICS")
 
     walls = []
@@ -570,17 +640,30 @@ def phase_active_region():
         lanes["rescue_deep_reads"] += int((rescue & deep_read).sum())
         lanes["rescue_other_reads"] += int((rescue & ~deep_read).sum())
 
+    # the largest batch against the kernel-order twin, bit for bit; the
+    # steps the warps run against the steps their lanes need
+    pk, stacked = max(hmm.batches, key=lambda b: lane_cells(*(
+        torch.from_numpy(getattr(b[0], k)) for k in ("haplen", "rslen"))))
+    largest = f"R{pk.readq_u.shape[1]}_H{pk.hap_u.shape[0]}_P{pk.ridx.shape[0]}"
+    not_bit_equal = lanes_not_bit_equal(stacked, twin_in_kernel_order(device_batch(pk, dev)),
+                                        f"active-region batch {largest}")
+    run, needed = (sum(x) for x in zip(*(pairhmm_cuda.band_steps(b.haplen, b.rslen)
+                                         for b, _ in hmm.batches)))
+
     sample = sorted(set(range(0, nr, 16)) | set(np.nonzero(deep)[0].tolist()))
     exact = oracle([haps[j] for _ in sample for j in range(nh)],
                    [rd[i] for i in sample for _ in range(nh)]).reshape(len(sample), nh)
     err = float(np.abs(lik[sample] - exact).max())
     deep_min = float(lik[deep].min())
     log("5 active_region", reads=nr, haplotypes=nh, pairs=nr * nh, cells=cells,
-        wall_s_first=wall, wall_s_median_of_3=float(np.median(walls)),
+        wall_s_first=wall, rescue_s_first=rescue_metric.get("seconds", 0.0),
+        kernel_ms_first=kernel_ms, wall_s_median_of_3=float(np.median(walls)),
         gcells_per_s_median=cells / float(np.median(walls)) / 1e9,
         reads_per_s_median=nr / float(np.median(walls)),
         oracle_pairs=len(sample) * nh, max_abs_err=err, deep_min_log10=deep_min,
         kernel_launches=launches, batches=len(hmm.batches), kernel_vs_twin=twin_err,
+        largest_batch=largest, lanes_not_bit_equal_kernel_order=not_bit_equal,
+        warp_steps_run=run, lane_steps_needed=needed, warp_padding=run / needed,
         rescued_lanes=rescued, **{f"lanes_{k}": v for k, v in lanes.items()})
     if not (np.isfinite(lik).all() and (lik <= 1e-9).all()):
         raise AssertionError("non-finite or positive likelihoods")
@@ -987,8 +1070,9 @@ def phase_region_corpus():
     c = region_corpus()
     nr = len(c["rd"])
     engines = (PairHMM(), SmithWaterman(), PDHMM())
-    real_sw, real_pd = sw_cuda.sw_forward, pdhmm_cuda.pdhmm
+    real_sw, real_pd, real_hmm = sw_cuda.sw_forward, pdhmm_cuda.pdhmm, pairhmm_cuda.pairhmm_scaled
     calls = {"sw_forward": [], "pdhmm": []}
+    hmm_events = []  # CUDA events around the first run's PairHMM launches
 
     def recording_sw(*args, **kw):
         out = real_sw(*args, **kw)
@@ -1008,10 +1092,12 @@ def phase_region_corpus():
         pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
         if k == 0:
             sw_cuda.sw_forward, pdhmm_cuda.pdhmm = recording_sw, recording_pd
+            pairhmm_cuda.pairhmm_scaled = timed(real_hmm, hmm_events)
         try:
             outputs, (pairhmm_s, sw_s, pdhmm_s) = run_region(c, *engines)
         finally:
             sw_cuda.sw_forward, pdhmm_cuda.pdhmm = real_sw, real_pd
+            pairhmm_cuda.pairhmm_scaled = real_hmm
         m = profiling.METRICS.snapshot()
         runs.append(dict(
             outputs=outputs,
@@ -1020,6 +1106,7 @@ def phase_region_corpus():
             pairhmm_s=pairhmm_s, sw_s=sw_s, pdhmm_s=pdhmm_s,
             wall_s=pairhmm_s + sw_s + pdhmm_s,
             pairhmm_rescued=m.get("pairhmm_rescue", {}).get("items", 0),
+            pairhmm_rescue_s=m.get("pairhmm_rescue", {}).get("seconds", 0.0),
             sw_bt_bytes=m.get("sw_bt_copy", {}).get("items", 0),
             sw_bt_copy_s=m.get("sw_bt_copy", {}).get("seconds", 0.0),
             sw_host_walk_s=m.get("sw_host_walk", {}).get("seconds", 0.0),
@@ -1060,12 +1147,13 @@ def phase_region_corpus():
         c["rd"], sample, lik, [a.cigar for a in aligned], [a.alignment_offset for a in aligned],
         best, pd_lik, c["haps"], c["pd_pairs"])
     med = {k: float(np.median([r[k] for r in runs])) for k in
-           ("wall_s", "pairhmm_s", "sw_s", "pdhmm_s", "sw_bt_copy_s", "sw_host_walk_s",
-            "pdhmm_rescue_s")}
+           ("wall_s", "pairhmm_s", "pairhmm_rescue_s", "sw_s", "pdhmm_s", "sw_bt_copy_s",
+            "sw_host_walk_s", "pdhmm_rescue_s")}
     log("11 region_corpus", reads=nr, haplotypes=len(c["hd"]), pd_haplotypes=len(c["pdd"]),
         **{f"launches_{k}": v for k, v in launches.items()},
         **{f"{k}_median_of_3": v for k, v in med.items()},
         reads_per_s_median=nr / med["wall_s"],
+        pairhmm_kernel_ms_first=sum(s.elapsed_time(e) for s, e in hmm_events),
         pairhmm_rescued_lanes=runs[0]["pairhmm_rescued"],
         pdhmm_lanes=nr * len(c["pdd"]), pdhmm_rescued_lanes=runs[0]["pdhmm_rescued"],
         sw_bt_bytes=runs[0]["sw_bt_bytes"], oracle_sample_reads=len(sample),
@@ -1140,6 +1228,11 @@ def phase_long_kernels():
     err, below = compare_raw(k_raw, rows_twin(0), "rows kernel vs twin", near=TOL_IN_RANGE)
     if not torch.equal(rows(0).cpu(), k_raw):
         raise AssertionError("rows kernel: _raw_batch and the wrapper differ on one batch")
+    planes = pc.expand_indexed_planes(hap, variants[0], lanes, lanes, quals_u=quals_u)
+    order = pc.pairhmm_raw_scaled_kernel_order(*planes, haplen, rslen, scaled=False).cpu()
+    not_bit_equal = int((k_raw.view(torch.int32) != order.view(torch.int32)).sum())
+    if not_bit_equal:
+        raise AssertionError(f"rows kernel vs kernel-order twin: {not_bit_equal} lanes differ")
     mant, ex, _ = (t.cpu().numpy() for t in pc.unpack(pc.pairhmm_scaled(
         hap, variants[0], lanes, lanes, haplen, rslen, quals_u=quals_u)))
     scaled_log = np.log10(mant.astype(np.float64)) + ex * np.log10(2.0)
@@ -1154,6 +1247,7 @@ def phase_long_kernels():
                                      k_raw), cells, H * P)
     log("12a rows_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}", launches_via_raw_batch=rows_launches,
         max_abs_log10_err=err, lanes_below_min_accepted=below,
+        lanes_not_bit_equal_kernel_order=not_bit_equal,
         max_abs_log10_vs_scaled_in_range=vs_scaled, kernel_ms=ms, twin_ms=plain_ms,
         kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6, **b)
     rows_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
@@ -1464,7 +1558,10 @@ def main(argv) -> int:
         ("sw_forward", "sw_forward.cu", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
         ("pdhmm", "pdhmm.cu", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
     ]
-    notes = {"pairhmm_cols": "a warp per lane on an anti-diagonal wavefront, 4, 8 or 16 read "
+    band = ("eight threads a lane on an 8-row band wavefront, four lanes a warp; the "
+            "renormalisation at the band barrier")
+    notes = {"pairhmm_scaled": band, "pairhmm_rows": band + " (none in this instance)",
+             "pairhmm_cols": "a warp per lane on an anti-diagonal wavefront, 4, 8 or 16 read "
                              "rows a thread in passes of 32 strips; one kernel for both TPU "
                              "kernels"}
     # no single PyTorch call computes a PairHMM, PDHMM or SW forward

@@ -1,7 +1,6 @@
 // What the PairHMM kernels share (pairhmm_scaled.cu's two instances and
 // pairhmm_cols.cu): the constants of the recurrence, the exact context
-// tables in shared memory, a lane's per-row transition probabilities, and
-// the block size of a row-kernel launch.
+// tables in shared memory and a lane's per-row transition probabilities.
 #pragma once
 
 #include <cstdint>
@@ -13,14 +12,19 @@ constexpr int kTri = 128 * 129 / 2;     // match-to-match entries, quals <= 127
 constexpr float kInitialConstant = 0x1p120f;
 
 // The 128-entry ph2pr table and the 8256-entry triangular match-to-match
-// cache, copied into the block's shared memory.
-struct Tables {
+// cache, copied into the block's shared memory.  The cache goes over in
+// 16-byte words, four loads in flight a thread: a block of one warp waits
+// on 17 rounds of loads, not 258.
+struct alignas(16) Tables {
   float ph2pr[128];
   float m2m[kTri];
 
   __device__ void load(const float* __restrict__ ph2pr_g, const float* __restrict__ m2m_g) {
     for (int i = threadIdx.x; i < 128; i += blockDim.x) ph2pr[i] = ph2pr_g[i];
-    for (int i = threadIdx.x; i < kTri; i += blockDim.x) m2m[i] = m2m_g[i];
+    const float4* src = reinterpret_cast<const float4*>(m2m_g);
+    float4* dst = reinterpret_cast<float4*>(m2m);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kTri / 4; i += blockDim.x) dst[i] = __ldg(src + i);
     __syncthreads();
   }
 };
@@ -58,14 +62,6 @@ __device__ __forceinline__ Row row_of(const Tables& t, const uint8_t* __restrict
   w.dmatch = 1.f - distm;
   w.dmis = distm / 3.f;
   return w;
-}
-
-// The row kernels run one thread per lane; with fewer lanes than the card
-// has SMs x 2 blocks, smaller blocks spread them over more SMs.
-inline int block_for(int P) {
-  int block = 128;
-  while (block > 32 && (P + block - 1) / block < 264) block >>= 1;
-  return block;
 }
 
 }  // namespace pairhmm

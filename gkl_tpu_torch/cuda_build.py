@@ -59,12 +59,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp,                  # ph2pr (128,), match-to-match (8256,)
     ]
     lib.gkl_pairhmm_scaled.argtypes = indexed + [
-        vp, vp, vp, vp,          # M, X, Y (H, P) f32 scratch; live (H, P) u8
+        vp, vp, vp,              # M, X, Y (H, P) f32: the boundary row between bands
         vp,                      # out (3, P) i32: mantissa bits, exp2, flag
         vp,                      # cudaStream_t
     ]
     lib.gkl_pairhmm_rows.argtypes = indexed + [
-        vp, vp, vp,              # M, X, Y (H, P) f32 scratch
+        vp, vp, vp,              # M, X, Y (H, P) f32: the boundary row between bands
         vp,                      # out (P,) f32
         vp,                      # cudaStream_t
     ]

@@ -3,13 +3,20 @@
 Counterpart of ``gkl_tpu/ops/pairhmm_pallas.py`` (``_scaled_kernel``,
 ``_kernel``, their wrappers, ``expand_indexed_planes`` and the transition
 prep).  Both wrappers take a deduplicated batch and launch an instance of
-``csrc/pairhmm_scaled.cu`` (built for sm_90a) on CUDA tensors, or raise:
+``csrc/pairhmm_scaled.cu`` (built for sm_90a; eight threads a lane on an
+8-row band wavefront) on CUDA tensors, or raise:
 
 * :func:`pairhmm_scaled`: the per-lane forward probability as
   ``mantissa * 2^exp2`` plus a window flag (see the kernel's source note);
   its twin on CPU tensors is :func:`pairhmm_raw_scaled_reference`;
 * :func:`pairhmm_rows`: the plain f32 forward without rescaling; its twin
   on CPU tensors is ``ops.pairhmm.pairhmm_raw(..., dtype="float32")``.
+
+:func:`pairhmm_raw_scaled_kernel_order` computes both instances in the
+kernel's own order (band by band, anti-diagonal by anti-diagonal, Y
+carried serially): the kernel equals it bit for bit, so the card is held
+to it.  The CPU twins above differ from the kernel in the last bits (their
+Y is a scan, their result sum a tree).
 """
 
 from __future__ import annotations
@@ -78,6 +85,22 @@ def _split_coeff(m: torch.Tensor, e: torch.Tensor):
 
     q = torch.where(e < -252, torch.zeros_like(m), m * pow2c(eh))
     return q, pow2c(el)
+
+
+def _fold(acc_m, e_acc, e_state, acc_chunk):
+    """Fold a band's result-row sum into the accumulator by value exponents
+    (the kernel's integer and power-of-two steps): ``(acc_m, e_acc)``."""
+    has_acc = acc_m > 0
+    has_chunk = acc_chunk > 0
+    chunk_e = e_state + _exponent_of(acc_chunk)
+    e_new = torch.where(has_acc & has_chunk, torch.maximum(e_acc, chunk_e),
+                        torch.where(has_acc, e_acc, chunk_e))
+    d_acc = torch.where(has_acc, e_acc - e_new, torch.zeros_like(e_acc))
+    d_chunk = torch.where(has_chunk, e_state - e_new, torch.zeros_like(e_acc))
+    acc_m = _ftz(acc_m * _pow2m(d_acc)) + _ftz(acc_chunk * _pow2m(d_chunk))
+    ea = torch.where(acc_m > 0, _exponent_of(acc_m), torch.zeros_like(e_acc))
+    acc_m = acc_m * _pow2(-ea)
+    return acc_m, torch.where(acc_m > 0, e_new + ea, e_state)
 
 
 def pairhmm_raw_scaled_reference(hap, read, q, iq, dq, gcp, haplen, rslen):
@@ -164,18 +187,7 @@ def pairhmm_raw_scaled_reference(hap, read, q, iq, dq, gcp, haplen, rslen):
             acc_chunk = acc_chunk + torch.where(rslen == r + 1, row_sum, torch.zeros_like(row_sum))
             if k == 3:
                 live_mid = ((m + x + y) * col_valid) > 0
-        # fold the chunk into the accumulator by value exponents
-        has_acc = acc_m > 0
-        has_chunk = acc_chunk > 0
-        chunk_e = e_state + _exponent_of(acc_chunk)
-        e_new = torch.where(has_acc & has_chunk, torch.maximum(e_acc, chunk_e),
-                            torch.where(has_acc, e_acc, chunk_e))
-        d_acc = torch.where(has_acc, e_acc - e_new, torch.zeros_like(e_acc))
-        d_chunk = torch.where(has_chunk, e_state - e_new, torch.zeros_like(e_acc))
-        acc_m = _ftz(acc_m * _pow2m(d_acc)) + _ftz(acc_chunk * _pow2m(d_chunk))
-        ea = torch.where(acc_m > 0, _exponent_of(acc_m), torch.zeros_like(e_acc))
-        acc_m = acc_m * _pow2(-ea)
-        e_acc = torch.where(acc_m > 0, e_new + ea, e_state)
+        acc_m, e_acc = _fold(acc_m, e_acc, e_state, acc_chunk)
         # renormalise; columns past haplen are zeroed first
         m_v, x_v, y_v = m * col_valid, x * col_valid, y * col_valid
         live_now = (m_v + x_v + y_v) > 0
@@ -192,6 +204,147 @@ def pairhmm_raw_scaled_reference(hap, read, q, iq, dq, gcp, haplen, rslen):
         y = _ftz(_ftz(y_v * sf) * up)
         e_state = e_state + e - 90
     return acc_m, e_acc, flag
+
+
+def pairhmm_raw_scaled_kernel_order(hap, read, q, iq, dq, gcp, haplen, rslen, *,
+                                    scaled: bool = True):
+    """PairHMM forward in the CUDA kernel's order, in plain PyTorch: what
+    ``csrc/pairhmm_scaled.cu`` computes, bit for bit.
+
+    Dense (length, lane) planes as in ``ops.pairhmm.pairhmm_raw``.  The
+    rows go in bands of 8, and a band is swept over its anti-diagonals, its
+    eight rows of every lane at once: at step s row k computes column
+    s - k from its row above (row k-1's values of the step before; for row
+    0 the band's boundary row, the last row of the band before, scaled on
+    read), with the kernel's products and sums in its order, Y carried
+    serially along the columns, and the result row summed in column order.
+    Subnormals flush after every product (the kernel's -ftz=true).
+
+    ``scaled=True`` (``R`` a multiple of 8): the scaled instance, with the
+    renormalisation at every band's end, the accumulator fold and the
+    flag's bits (bit 0 alive at the last renormalisation, bit 1 the row-3
+    sample, lost at row 7); returns ``(mantissa (P,) f32, exp2 (P,) i32,
+    flag (P,) i32)``.  ``scaled=False``: the plain instance, rows up to
+    rslen-1 only; returns the (P,) f32 raw forward.  Nothing on the main
+    path calls it.
+    """
+    f = torch.float32
+    ctx = ctx_mod.pairhmm_context("float32")
+    dev = hap.device
+    H, P = hap.shape
+    R = read.shape[0]
+    if scaled and R % 8:
+        raise ValueError(f"read rows must be a multiple of 8, got {R}")
+    # pXX == pYY == p_c, the gap continuation probability
+    p_mm, p_gapm, p_mx, p_c, p_my, _, dmatch, dmis = transition_rows(
+        q, iq, dq, gcp, ctx, f, dev)
+    inity = torch.tensor(ctx.INITIAL_CONSTANT, dtype=f, device=dev) / haplen.to(f)
+    hl = haplen.to(torch.int64)[None, :]
+    rl = rslen.to(torch.int64)
+    nbands = (rl + 7) // 8
+    # the row planes in whole bands (rows past R are never visited)
+    pad = -R % 8
+    rows = [torch.cat([a, a.new_zeros((pad, P))]) if pad else a
+            for a in (read, p_mm, p_gapm, p_mx, p_c, p_my, dmatch, dmis)]
+    # hap bytes by anti-diagonal: row k of step s reads column s - k, a
+    # reversed window of the padded haplotype
+    hap_rev = torch.cat([hap.new_zeros((7, P)), hap, hap.new_zeros((8, P))]).flip(0)
+    width = hap_rev.shape[0]
+    band_row = torch.arange(8, device=dev)
+    zero = torch.zeros((8, P), dtype=f, device=dev)
+    zrow = torch.zeros(P, dtype=f, device=dev)
+    up = torch.tensor(2.0 ** 90, dtype=f, device=dev)
+
+    # the boundary row above the band as stored (unscaled)
+    bm = bx = by = None
+    acc_m = torch.zeros(P, dtype=f, device=dev)
+    e_acc = torch.zeros(P, dtype=torch.int32, device=dev)
+    e_state = torch.zeros_like(e_acc)
+    flag = torch.zeros_like(e_acc)
+    sf = torch.ones(P, dtype=f, device=dev)
+    for c in range(int(nbands.max()) if P else 0):
+        active = c < nbands
+        r = 8 * c + band_row
+        on = active[None, :] & (r[:, None] < (8 * nbands if scaled else rl)[None, :])
+        rd, pmm, pgapm, pmx, pc, pmy, dm, ds = (a[8 * c:8 * c + 8] for a in rows)
+        rd_n = rd == N_CODE
+        last = on & (r[:, None] + 1 == rl[None, :])
+        # t carries pMM*M + pGAPM*(X + Y) of the row above at column j-1
+        t = zero.clone()
+        if c == 0:
+            t[0] = _ftz(pgapm[0] * inity)
+            b_m = b_x = torch.zeros((H, P), dtype=f, device=dev)  # the virtual row 0
+            b_y = inity.expand(H, P)
+            live0 = torch.ones((H, P), dtype=torch.bool, device=dev)
+        else:
+            live0 = (bm != 0) | (bx != 0) | (by != 0)
+            b_m, b_x, b_y = ((_ftz(_ftz(v * sf) * up) for v in (bm, bx, by)) if scaled
+                             else (bm, bx, by))
+        m = x = y = zero  # each row at its last column
+        row_sum, mx = zero, zrow
+        lost = torch.zeros(P, dtype=torch.bool, device=dev)
+        live3 = torch.zeros((H, P), dtype=torch.bool, device=dev)
+        bm, bx, by = (torch.zeros((H, P), dtype=f, device=dev) for _ in range(3))
+        for s in range(H + 7):
+            j = s - band_row
+            valid = on & (j >= 0)[:, None] & (j[:, None] < hl)
+            hb = hap_rev[width - s - 8:width - s]
+            top = (b_m[s], b_x[s], b_y[s]) if s < H else (zrow, zrow, zrow)
+            up_m, up_x, up_y = (torch.cat([v0[None], v[:-1]]) for v0, v in zip(top, (m, x, y)))
+            prior = torch.where((hb == rd) | (hb == N_CODE) | rd_n, dm, ds)
+            mn = _ftz(prior * t)
+            xn = _ftz(pmx * up_m) + _ftz(pc * up_x)
+            yn = _ftz(pc * y) + _ftz(pmy * m)
+            tn = _ftz(pmm * up_m) + _ftz(pgapm * (up_x + up_y))
+            m, x, y, t = (torch.where(valid, a, b) for a, b in ((mn, m), (xn, x), (yn, y), (tn, t)))
+            row_sum = row_sum + torch.where(valid & last, mn + xn, 0.0)
+            j7 = s - 7  # row 7's column: the flag's test, the maximum, the boundary row
+            if scaled:
+                alive = (mn != 0) | (xn != 0) | (yn != 0)
+                if 0 <= s - 3 < H:
+                    live3[s - 3] = valid[3] & alive[3]
+                if 0 <= j7:
+                    v7 = valid[7]
+                    lost = lost | (v7 & live0[j7] & ~(live3[j7] & alive[7]))
+                    mx = torch.where(v7, torch.maximum(mx, torch.maximum(
+                        mn[7], torch.maximum(xn[7], yn[7]))), mx)
+            if 0 <= j7 < H:
+                for plane, v in ((bm, mn), (bx, xn), (by, yn)):
+                    plane[j7] = torch.where(valid[7], v[7], 0.0)
+        acc_chunk = row_sum.sum(dim=0)  # one row at most holds rslen-1
+        if not scaled:
+            acc_m = torch.where(active, acc_m + acc_chunk, acc_m)
+            continue
+        new_acc, new_e_acc = _fold(acc_m, e_acc, e_state, acc_chunk)
+        e = _exponent_of(mx)
+        acc_m = torch.where(active, new_acc, acc_m)
+        e_acc = torch.where(active, new_e_acc, e_acc)
+        flag = torch.where(active & lost, 1, flag)
+        sf = torch.where(active, _pow2(-e), sf)
+        e_state = torch.where(active, e_state + e - 90, e_state)
+    return (acc_m, e_acc, flag) if scaled else acc_m
+
+
+def band_steps(haplen, rslen, *, scaled: bool = True) -> tuple[int, int]:
+    """The row kernel's schedule on a batch, in lane-steps: ``(run,
+    needed)``.  A lane needs haplen + 7 steps for each of its
+    ceil(rslen/8) bands (the plain instance, on a lane's last band: haplen
+    + the rows of that band below rslen, less one); a warp holds four
+    lanes and runs, for each band, the most steps any of its lanes still
+    in that band needs.  ``run / needed`` is what the warp-uniform loops
+    cost."""
+    hl = np.asarray(haplen, np.int64)
+    rl = np.asarray(rslen, np.int64)
+    fill = -len(hl) % 4  # the last warp's lanes past P need nothing
+    hl, rl = np.pad(hl, (0, fill)), np.pad(rl, (0, fill))
+    nbands = (rl + 7) // 8
+    run = needed = 0
+    for c in range(int(nbands.max(initial=0))):
+        last_k = 7 if scaled else np.minimum(7, rl - 1 - 8 * c)
+        need = np.where(c < nbands, hl + last_k, 0)
+        needed += int(need.sum())
+        run += 4 * int(need.reshape(-1, 4).max(axis=1).sum())
+    return run, needed
 
 
 def expand_indexed_planes(hap_u, readq_u, ridx, hidx, *, const_quals=None,
@@ -260,9 +413,10 @@ def _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals
 def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
             H, nu_h, R, nu_r, P, out, *extra):
     """Launch one of the PairHMM kernels (``fn``: an instance of the row
-    kernel, or the column kernel) on an indexed batch's CUDA tensors, with
-    fresh (H, P) M/X/Y scratch, into ``out``.  ``extra`` (scratch tensors,
-    or ints) go between the scratch and ``out``."""
+    kernel, or the column kernel) on an indexed batch's CUDA tensors into
+    ``out``, with three fresh (H, P) f32 planes for the boundary row's
+    M/X/Y that a band (row kernel) or a pass (column kernel) hands to the
+    next.  ``extra`` (ints) go between the planes and ``out``."""
     device = hap_u.device
     ph2pr, m2m = _device_tables(device)
     Ms = torch.empty((H, P), dtype=torch.float32, device=device)
@@ -278,7 +432,7 @@ def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
         ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
         ph2pr.data_ptr(), m2m.data_ptr(),
         Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(),
-        *(t.data_ptr() if isinstance(t, torch.Tensor) else t for t in extra),
+        *extra,
         out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
@@ -316,10 +470,9 @@ def pairhmm_scaled(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
         return torch.stack([mant.view(torch.int32), ex, flag])
 
     lib = cuda_build.load()
-    live = torch.empty((H, P), dtype=torch.uint8, device=device)
     out = torch.empty((3, P), dtype=torch.int32, device=device)
     _launch(lib.gkl_pairhmm_scaled, hap_u, readq_u, ridx, hidx, haplen, rslen,
-            const_quals, quals_u, H, nu_h, R, nu_r, P, out, live)
+            const_quals, quals_u, H, nu_h, R, nu_r, P, out)
     LAUNCHES += 1
     return out
 

@@ -464,3 +464,80 @@ def test_long_wrappers_validate_inputs(cuda_device):
         pairhmm_cuda.pairhmm_rows(**dict(t, readq_u=t["readq_u"].cpu()))
     with pytest.raises(ValueError, match="quals_u"):
         pairhmm_cuda.pairhmm_rows(**dict(t, quals_u=t["quals_u"][:, :8].contiguous()))
+
+
+def _row_kernel(t, scaled):
+    """Launch the scaled or the plain instance of the row kernel on the
+    indexed batch ``t``; returns its raw output (the (3, P) int32 tensor, or
+    the (P,) f32 raw forward)."""
+    if scaled:
+        return pairhmm_cuda.pairhmm_scaled(**t)
+    return pairhmm_cuda.pairhmm_rows(**t)
+
+
+def _assert_bit_equal_to_kernel_order(out, t, scaled):
+    """The row kernel's output equals the kernel-order twin's on the same
+    card tensors in every bit (mantissa, exp2 and flag, or the f32 result)."""
+    twin = chip_smoke.twin_in_kernel_order(t, scaled=scaled)
+    if scaled:
+        chip_smoke.lanes_not_bit_equal(out, twin, "test")
+    else:
+        assert torch.equal(out.view(torch.int32), twin.view(torch.int32))
+
+
+def _band_case(case):
+    """Dense card planes for the row kernel: ragged lengths with deep
+    lanes, a lane count that is not a multiple of four, and a warp whose
+    lanes end in different bands and columns."""
+    if case == "ragged":
+        return _dense_batch(96, 128, 40, seed=8)
+    if case == "p_not_multiple_of_4":
+        return _dense_batch(64, 96, 13, seed=9)
+    if case == "one_lane":
+        return _dense_batch(40, 48, 1, seed=10)
+    # two warps: rslen in bands 0-11 and 1-row, 1-column lanes side by side
+    return _set_lanes(_dense_batch(96, 100, 8, seed=12), list(range(8)),
+                      rslen=[1, 8, 9, 96, 17, 40, 88, 3], haplen=[1, 100, 64, 7, 33, 2, 99, 50])
+
+
+@pytest.mark.parametrize("const_quals", [None, (45, 45, 10)])
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "rows"])
+@pytest.mark.parametrize("case", ["ragged", "p_not_multiple_of_4", "one_lane",
+                                  "lengths_across_bands"])
+def test_row_kernel_bit_equal_to_kernel_order_twin(cuda_device, case, scaled, const_quals):
+    """Both instances of the band-wavefront row kernel against the twin in
+    the kernel's order, bit for bit, with the gap quals as planes and as
+    constants: ragged lengths, P = 13 and P = 1 (warps with lanes past P),
+    and lanes of one warp whose rslen ends in different bands."""
+    t = chip_smoke.indexed_args(_band_case(case))
+    if const_quals is not None:
+        del t["quals_u"]
+        t["const_quals"] = const_quals
+    launches = pairhmm_cuda.LAUNCHES, pairhmm_cuda.ROWS_LAUNCHES
+    out = _row_kernel(t, scaled)
+    assert (pairhmm_cuda.LAUNCHES, pairhmm_cuda.ROWS_LAUNCHES) == (
+        launches[0] + scaled, launches[1] + (not scaled))
+    _assert_bit_equal_to_kernel_order(out, t, scaled)
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "rows"])
+def test_row_kernel_malformed_lanes_beside_good_ones(cuda_device, scaled):
+    """Lanes with an out-of-range length or index share warps with good
+    lanes (four lanes a warp): they get a NaN mantissa (and flag -1), and
+    the good lanes keep their results bit for bit."""
+    t = chip_smoke.indexed_args(_dense_batch(48, 64, 12, seed=13))
+    good = _row_kernel(t, scaled)
+    bad = dict(t, haplen=t["haplen"].clone(), rslen=t["rslen"].clone(), ridx=t["ridx"].clone())
+    bad["haplen"][1] = 65
+    bad["rslen"][6] = 0
+    bad["ridx"][9] = 12
+    got = _row_kernel(bad, scaled)
+    nan = torch.zeros(12, dtype=torch.bool, device=cuda_device)
+    nan[[1, 6, 9]] = True
+    if scaled:
+        mant, _, flag = pairhmm_cuda.unpack(got)
+        assert torch.isnan(mant[nan]).all() and (flag[nan] == -1).all()
+        assert torch.equal(got[:, ~nan], good[:, ~nan])
+    else:
+        assert torch.isnan(got[nan]).all() and torch.equal(got[~nan], good[~nan])
+    _assert_bit_equal_to_kernel_order(good, t, scaled)

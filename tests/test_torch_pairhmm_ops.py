@@ -177,3 +177,116 @@ def test_wrapper_validates_inputs():
     short = dict(t, readq_u=t["readq_u"][:, :5].contiguous())
     with pytest.raises(ValueError, match="R % 8"):
         pairhmm_cuda.pairhmm_scaled(**short, const_quals=(45, 45, 10))
+
+
+# The twin in the CUDA kernel's order (``pairhmm_raw_scaled_kernel_order``):
+# it sums Y serially and the result row in column order, so it differs from
+# the scan twin in the last bits only.  In-range lanes agree within 1e-6 in
+# log10 (measured: under 5e-8), and within 1e-5 of the Pallas kernel (whose
+# transition prep differs by ~1e-7); the flags are equal on every batch.
+def _order_sources():
+    return {"gatk_like_0": lambda: _gatk_like_packed(0)[1],
+            "gatk_like_1": lambda: _gatk_like_packed(1)[1],
+            "golden": lambda: _golden_packed()[1],
+            "deep": lambda: _deep_packed()[1]}
+
+
+@pytest.mark.parametrize("source", sorted(_order_sources()))
+def test_kernel_order_twin_matches_scan_twin(source):
+    tpk = _order_sources()[source]()
+    planes = _torch_planes(tpk)
+    km, ke, kf = pairhmm_cuda.pairhmm_raw_scaled_kernel_order(*planes)
+    rm, re_, rf = pairhmm_cuda.pairhmm_raw_scaled_reference(*planes)
+    got = pairhmm_cuda.log10_of(km.numpy(), ke.numpy())
+    want = pairhmm_cuda.log10_of(rm.numpy(), re_.numpy())
+    in_range = want > -64.0
+    np.testing.assert_allclose(got[in_range], want[in_range], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(kf.numpy(), rf.numpy())
+    if source == "deep":  # below the f32 range: against the exact f64 oracle
+        _, _, hap, reads, quals = _deep_packed()
+        exact = pairhmm_ref.pairhmm_scalar_batch([hap] * 8, reads, quals)
+        np.testing.assert_allclose(got[:8], exact, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["gatk_like", "wide_quals", "die_and_refill"])
+def test_kernel_order_twin_matches_pallas_interpret(case):
+    """The kernel-order twin against the Pallas ``_scaled_kernel`` in
+    interpret mode at small sizes: the same flags; in-range lanes within
+    1e-5 in log10."""
+    if case == "gatk_like":
+        jpk, tpk = _gatk_like_packed(5, n=32, R=24, H=40)
+        jplanes, n = _planes(jpk), jpk.n_real
+    else:
+        jplanes = dict(flag_cases())[case]
+        n = jplanes[0].shape[1]
+    jm, je, jf = pairhmm_raw_pallas_scaled(*jplanes, lane_block=8, interpret=True)
+    km, ke, kf = pairhmm_cuda.pairhmm_raw_scaled_kernel_order(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in jplanes))
+    np.testing.assert_array_equal(kf.numpy()[:n], np.asarray(jf)[:n])
+    want = pairhmm_cuda.log10_of(jm, je)[:n]
+    ok = (np.asarray(jm)[:n] > 0) & (want > -64.0)
+    assert ok.any()
+    np.testing.assert_allclose(pairhmm_cuda.log10_of(km.numpy(), ke.numpy())[:n][ok], want[ok],
+                               rtol=0, atol=1e-5)
+
+
+def _ragged_planes(seed, R, H, P):
+    """Dense ragged planes (numpy), reads mutated windows of their lane's
+    haplotype, with lengths set per lane below."""
+    rng = np.random.default_rng(seed)
+    hap = BASES[rng.integers(0, 4, (H, P))]
+    read = np.resize(hap, (R, P)).copy()
+    mut = rng.random((R, P)) < 0.05
+    read[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    quals = [rng.integers(lo, hi, (R, P)).astype(np.uint8)
+             for lo, hi in ((15, 45), (30, 46), (30, 46), (8, 12))]
+    haplen = rng.integers(H // 2, H + 1, P).astype(np.int32)
+    rslen = rng.integers(1, R + 1, P).astype(np.int32)
+    return [hap, read, *quals, haplen, rslen]
+
+
+@pytest.mark.parametrize("R", [20, 32])
+def test_kernel_order_plain_matches_pairhmm_raw(R):
+    """The plain instance (``scaled=False``, any R) against
+    ``ops.pairhmm.pairhmm_raw(dtype="float32")``: relative 1e-5, since the
+    two sum Y (scan vs serial) and the result row (tree vs column order) in
+    different orders."""
+    planes = [torch.from_numpy(a) for a in _ragged_planes(R, R, 40, 24)]
+    got = pairhmm_cuda.pairhmm_raw_scaled_kernel_order(*planes, scaled=False)
+    want = tops.pairhmm_raw(*planes, dtype="float32")
+    assert got.dtype == torch.float32 and (want > 0).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "plain"])
+def test_kernel_order_lanes_side_by_side(scaled):
+    """Lanes of different haplen and rslen in one batch, as a warp of four
+    lanes sees them (rslen ending in different bands, 1-row and 1-column
+    lanes): each lane's result is bit for bit that of the lane alone."""
+    planes = _ragged_planes(11, 32, 40, 8)
+    planes[6][:] = [1, 40, 17, 33, 8, 40, 2, 25]
+    planes[7][:] = [1, 8, 9, 32, 17, 3, 24, 16]
+    tp = [torch.from_numpy(a) for a in planes]
+    together = pairhmm_cuda.pairhmm_raw_scaled_kernel_order(*tp, scaled=scaled)
+    together = together if scaled else (together,)
+    for p in range(8):
+        alone = pairhmm_cuda.pairhmm_raw_scaled_kernel_order(
+            *(a[..., p:p + 1] for a in tp), scaled=scaled)
+        for a, b in zip(together, alone if scaled else (alone,)):
+            assert torch.equal(a[p:p + 1], b), p
+
+
+def test_band_steps_counts_warp_padding():
+    """The row kernel's schedule: a warp runs, per band, the most steps any
+    of its four lanes still in that band needs."""
+    run, needed = pairhmm_cuda.band_steps([10] * 4, [16] * 4)
+    assert run == needed == 4 * 2 * (10 + 7)
+    # one long lane in a warp: the others wait through its bands
+    run, needed = pairhmm_cuda.band_steps([10, 10, 10, 30], [8, 8, 8, 24])
+    assert needed == 3 * 17 + 3 * 37
+    assert run == 4 * 37 * 3
+    # a fifth lane starts a second warp whose padding lanes need nothing
+    run, needed = pairhmm_cuda.band_steps([10] * 5, [8] * 5)
+    assert (run, needed) == (8 * 17, 5 * 17)
+    # the plain instance stops at rslen: the last band's rows below it
+    assert pairhmm_cuda.band_steps([10], [3], scaled=False) == (4 * 12, 12)
