@@ -9,7 +9,7 @@ before printing any result.  Phases, one line each (or a few):
 1. build: the CUDA kernels (one nvcc per source, sm_90a, all started
    together, linked into one library) and the host C++ libraries, with
    the registers and spills of both instances of the row kernel and of
-   each instance of the column kernel;
+   each instance of the column and SW kernels;
 2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
    shape (R=128, H=224, P=2048), with the gap quals as planes and as the
    GATK constants, both timed; and on a deep-lane batch.  Each is also held
@@ -30,7 +30,8 @@ before printing any result.  Phases, one line each (or a few):
 7. Smith-Waterman kernel vs twin, bit for bit on the region the host walk
    reads (bt codes of rows < reflen and columns < altlen, lastrow[:altlen],
    lastcol[:reflen]): (a) the realignment shape N=448, M=256, P=10,240;
-   (b) the haplotype-to-reference shape N=4,096, alts 600-1,000, P=256;
+   (b) the haplotype-to-reference shape N=4,096, alts 600-1,000, P=256,
+   each with the launch's geometry (rows a thread, passes, warps);
    (c) two pairs at the 32,767-base limit through ``SmithWaterman`` against
    the native scalar aligner;
 8. PDHMM kernel vs twin (in-range lanes at 1e-5 in log10, the same lanes
@@ -46,7 +47,7 @@ before printing any result.  Phases, one line each (or a few):
     ``PDHMM.compute_likelihoods``): the main path, whose launches of all
     three kernels are counted, checked against the oracles as
     ``gkl_tpu/validation.py::check_corpus`` does, timed median of 3 (the
-    first run's PairHMM launches also by CUDA events).  Each SW and PDHMM
+    first run's PairHMM and SW launches also by CUDA events).  Each SW and PDHMM
     launch of its first run is held against the twin on the same tensors,
     at the shapes the path gave it;
 12. the long-haplotype kernels vs their twins, timed: (a) the rows kernel
@@ -135,6 +136,13 @@ TABLE_BYTES = {"pairhmm_scaled": 33536, "pairhmm_rows": 33536, "pairhmm_cols": 3
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def default_rescue_policy() -> None:
+    """The PairHMM rescue's default (flagged) policy: neither
+    GKL_TPU_RESCUE nor GKL_TPU_EXACT_RESCUE set."""
+    for name in ("GKL_TPU_RESCUE", "GKL_TPU_EXACT_RESCUE"):
+        os.environ.pop(name, None)
 
 
 def nbytes(*tensors) -> int:
@@ -410,6 +418,13 @@ def phase_build():
             raise AssertionError(f"no pairhmm_cols instance for {rows} rows a thread in the "
                                  f"ptxas log")
         log("1 build", kernel="pairhmm_cols", rows_per_thread=rows, **instances[str(rows)])
+    from gkl_tpu_torch.ops import sw_cuda
+    instances = kernel_instances(build_log, r"sw_forward_kernelILi(\d+)E")
+    for rows in sw_cuda.ROWS_PER_THREAD:
+        if str(rows) not in instances:
+            raise AssertionError(f"no sw_forward instance for {rows} rows a thread in the "
+                                 f"ptxas log")
+        log("1 build", kernel="sw_forward", rows_per_thread=rows, **instances[str(rows)])
 
 
 def kernel_instances(build_log: str, pattern: str) -> dict:
@@ -587,7 +602,7 @@ def phase_active_region():
     cells = sum(len(r.read_bases) for r in rd) * sum(len(h) for h in haps)
     hmm = RecordingPairHMM()
     real_scaled, events = pairhmm_cuda.pairhmm_scaled, []
-    os.environ.pop("GKL_TPU_RESCUE", None)  # the default (flagged) policy
+    default_rescue_policy()
     os.environ["GKL_TPU_METRICS"] = "1"
     profiling.METRICS.reset()
     pairhmm_cuda.LAUNCHES = 0
@@ -649,6 +664,14 @@ def phase_active_region():
                                         f"active-region batch {largest}")
     run, needed = (sum(x) for x in zip(*(pairhmm_cuda.band_steps(b.haplen, b.rslen)
                                          for b, _ in hmm.batches)))
+    # the groups that the in-flight byte budget left to result() (the
+    # batches come in dispatch order)
+    inflight, lazy = 0, 0
+    for b, _ in hmm.batches:
+        if inflight and inflight + b.device_bytes() > PairHMM._ASYNC_INFLIGHT_BYTES:
+            lazy += 1
+        else:
+            inflight += b.device_bytes()
 
     sample = sorted(set(range(0, nr, 16)) | set(np.nonzero(deep)[0].tolist()))
     exact = oracle([haps[j] for _ in sample for j in range(nh)],
@@ -661,7 +684,8 @@ def phase_active_region():
         gcells_per_s_median=cells / float(np.median(walls)) / 1e9,
         reads_per_s_median=nr / float(np.median(walls)),
         oracle_pairs=len(sample) * nh, max_abs_err=err, deep_min_log10=deep_min,
-        kernel_launches=launches, batches=len(hmm.batches), kernel_vs_twin=twin_err,
+        kernel_launches=launches, batches=len(hmm.batches), batches_lazy=lazy,
+        kernel_vs_twin=twin_err,
         largest_batch=largest, lanes_not_bit_equal_kernel_order=not_bit_equal,
         warp_steps_run=run, lane_steps_needed=needed, warp_padding=run / needed,
         rescued_lanes=rescued, **{f"lanes_{k}": v for k, v in lanes.items()})
@@ -769,7 +793,9 @@ def phase_sw_kernel_vs_twin():
         copy_ms = (time.perf_counter() - t0) * 1e3
         cells = lane_cells(args[2], args[3])
         b = bound("sw_forward", nbytes(*args, *k_out), cells)
+        rows, pass_rows, passes = sw_cuda.sw_geometry(N)
         log(what.split()[0] + " sw_kernel_vs_twin", shape=f"N{N}_M{args[1].shape[0]}_P{P}",
+            rows_per_thread=rows, pass_rows=pass_rows, passes=passes, warps=P,
             strategy=strategy, in_range_mismatches=bad, kernel_ms=ms, twin_ms=plain_ms,
             kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6,
             bt_bytes=bt_host.numel(), bt_copy_ms=copy_ms,
@@ -1073,9 +1099,11 @@ def phase_region_corpus():
     real_sw, real_pd, real_hmm = sw_cuda.sw_forward, pdhmm_cuda.pdhmm, pairhmm_cuda.pairhmm_scaled
     calls = {"sw_forward": [], "pdhmm": []}
     hmm_events = []  # CUDA events around the first run's PairHMM launches
+    sw_events = []  # and around its SW launches
+    timed_sw = timed(real_sw, sw_events)
 
     def recording_sw(*args, **kw):
-        out = real_sw(*args, **kw)
+        out = timed_sw(*args, **kw)
         calls["sw_forward"].append((args, kw, out))
         return out
 
@@ -1084,7 +1112,7 @@ def phase_region_corpus():
         calls["pdhmm"].append((t, out))
         return out
 
-    os.environ.pop("GKL_TPU_RESCUE", None)
+    default_rescue_policy()
     os.environ["GKL_TPU_METRICS"] = "1"
     runs = []
     for k in range(3):
@@ -1122,13 +1150,14 @@ def phase_region_corpus():
         if len(calls[name]) != launches[name]:
             raise AssertionError(f"{len(calls[name])} {name} calls recorded for "
                                  f"{launches[name]} launches")
-    for args, kw, k_out in calls.pop("sw_forward"):
+    for (args, kw, k_out), (start, end) in zip(calls.pop("sw_forward"), sw_events):
         ref, alt, reflen, altlen = args[:4]
         bad = sw_cuda.in_range_mismatches(
             k_out, sw_ops.sw_forward(*args, **kw, pack_bt=True), reflen, altlen)
         log("11 region_kernel_vs_twin", kernel="sw_forward",
             shape=f"N{ref.shape[0]}_M{alt.shape[0]}_P{ref.shape[1]}",
-            in_range_mismatches=bad)
+            rows_per_thread=sw_cuda.sw_geometry(ref.shape[0])[0],
+            kernel_ms=start.elapsed_time(end), in_range_mismatches=bad)
         if bad:
             raise AssertionError(f"SW kernel vs twin on the main path: {bad} cells differ")
     pd_err = 0.0
@@ -1154,6 +1183,7 @@ def phase_region_corpus():
         **{f"{k}_median_of_3": v for k, v in med.items()},
         reads_per_s_median=nr / med["wall_s"],
         pairhmm_kernel_ms_first=sum(s.elapsed_time(e) for s, e in hmm_events),
+        sw_kernel_ms_first=sum(s.elapsed_time(e) for s, e in sw_events),
         pairhmm_rescued_lanes=runs[0]["pairhmm_rescued"],
         pdhmm_lanes=nr * len(c["pdd"]), pdhmm_rescued_lanes=runs[0]["pdhmm_rescued"],
         sw_bt_bytes=runs[0]["sw_bt_bytes"], oracle_sample_reads=len(sample),
@@ -1384,7 +1414,7 @@ def phase_long_region():
         calls.append((t, out, start, end))
         return out
 
-    os.environ.pop("GKL_TPU_RESCUE", None)
+    default_rescue_policy()
     os.environ["GKL_TPU_METRICS"] = "1"
     hmm = RecordingPairHMM()
     profiling.METRICS.reset()
@@ -1563,7 +1593,11 @@ def main(argv) -> int:
     notes = {"pairhmm_scaled": band, "pairhmm_rows": band + " (none in this instance)",
              "pairhmm_cols": "a warp per lane on an anti-diagonal wavefront, 4, 8 or 16 read "
                              "rows a thread in passes of 32 strips; one kernel for both TPU "
-                             "kernels"}
+                             "kernels",
+             "sw_forward": "a warp per lane on an anti-diagonal wavefront, 2, 4 or 8 reference "
+                           "rows a thread in passes of 32 strips, the pass boundary in (P, M) "
+                           "planes, bt written lane-major in 8-column words; one kernel for "
+                           "both TPU kernels"}
     # no single PyTorch call computes a PairHMM, PDHMM or SW forward
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{source}",

@@ -162,6 +162,12 @@ class PairHMM:
     # one kernel here.
     PALLAS_MAX_HAP = 2048
 
+    # compute_likelihoods_async keeps at most this many device bytes in
+    # flight (PackedPairsIndexed.device_bytes); later groups stay "lazy"
+    # and result() dispatches them one group ahead of the fetch, as
+    # gkl_tpu/api.py does
+    _ASYNC_INFLIGHT_BYTES = 256 << 20
+
     def __init__(self, args: PairHMMNativeArguments | None = None, *,
                  device: str | torch.device = "cuda"):
         self.initialize(args or PairHMMNativeArguments())
@@ -223,6 +229,15 @@ class PairHMM:
             arrays["quals_u"] = pk.quals_u
         return self._launch(arrays, lambda **t: kernel(**t, const_quals=pk.const_quals))
 
+    def _dispatch_group(self, idxs, pk: batch_mod.PackedPairsIndexed):
+        """Launch one read-group x hap-group batch without waiting: a
+        ``"scaled"`` work item on the scaled kernel, or past
+        ``PALLAS_MAX_HAP`` the JAX package's plain-f32 route
+        (gkl_tpu/api.py:703-712), an ``"f32"`` item on the column kernel."""
+        if pk.hap_u.shape[0] <= self.PALLAS_MAX_HAP:
+            return ("scaled", idxs, pk, self._dispatch(pk, pairhmm_cuda.pairhmm_scaled))
+        return ("f32", idxs, pk, self._dispatch(pk, pairhmm_cols.pairhmm_cols))
+
     def _raw_batch(self, packed: batch_mod.PackedPairs, dtype: str = "float32") -> np.ndarray:
         """Plain-f32 forward probabilities of a dense batch's real lanes:
         the counterpart of ``gkl_tpu/api.py:372-498`` on one device, the
@@ -267,9 +282,10 @@ class PairHMM:
         #     subnormal parity zone or without a finite result;
         #   device  — trust the scaled kernel wherever its result is finite;
         #   host    — rescue every deep lane (reference-exact).
+        # GKL_TPU_EXACT_RESCUE=1 means host whatever GKL_TPU_RESCUE says.
         deep = ~in_range & (~np.isfinite(res_deep) | (res_deep < -600.0))
         mode = os.environ.get("GKL_TPU_RESCUE", "flagged")
-        if mode == "host":
+        if os.environ.get("GKL_TPU_EXACT_RESCUE") == "1" or mode == "host":
             deep = ~in_range
         elif mode != "device":
             deep = deep | (~in_range & (flag != 0))
@@ -285,11 +301,12 @@ class PairHMM:
         Reads and haplotypes are grouped by their own length buckets; each
         read-group x hap-group pair is one deduplicated batch and one kernel
         launch: the scaled kernel, or past ``PALLAS_MAX_HAP`` the column
-        kernel.  The returned
-        handle materialises the results, including the
-        float-to-double rescue, on ``.result()``: the streaming pipeline's
-        building block, so that chunk N+1's host work overlaps chunk N's
-        device time.
+        kernel.  Groups launch here while their device bytes fit
+        ``_ASYNC_INFLIGHT_BYTES`` (the first always does); the rest wait as
+        ``"lazy"`` work items.  The returned handle materialises the
+        results, including the float-to-double rescue, on ``.result()``:
+        the streaming pipeline's building block, so that chunk N+1's host
+        work overlaps chunk N's device time.
         """
         if reads is None or haplotypes is None:
             raise TypeError("readDataArray/haplotypeDataArray is null")
@@ -329,6 +346,7 @@ class PairHMM:
         for j, ln in enumerate(hlens):
             hgroups.setdefault(batch_mod.bucket_length(ln), []).append(j)
         work = []
+        inflight = 0
         for rids in rgroups.values():
             rq = [(reads[i].read_quals, reads[i].insertion_gop,
                    reads[i].deletion_gop, reads[i].overall_gcp) for i in rids]
@@ -339,14 +357,12 @@ class PairHMM:
                     const_quals=const_quals)
                 idxs = (np.asarray(rids, np.int64)[:, None] * nh
                         + np.asarray(hids, np.int64)[None, :]).ravel()
-                if pk.hap_u.shape[0] <= self.PALLAS_MAX_HAP:
-                    work.append(("scaled", idxs, pk,
-                                 self._dispatch(pk, pairhmm_cuda.pairhmm_scaled)))
-                else:
-                    # the JAX package's route past the scaled kernel's cap
-                    # (gkl_tpu/api.py:703-712): a plain-f32 work item
-                    work.append(("f32", idxs, pk,
-                                 self._dispatch(pk, pairhmm_cols.pairhmm_cols)))
+                est = pk.device_bytes()
+                if work and inflight + est > self._ASYNC_INFLIGHT_BYTES:
+                    work.append(("lazy", idxs, pk, None))
+                    continue
+                inflight += est
+                work.append(self._dispatch_group(idxs, pk))
         return PendingLikelihoods(self, nr * nh, work, t0, cells)
 
     def compute_likelihoods(
@@ -368,7 +384,9 @@ class PendingLikelihoods:
 
     ``result()`` waits for each bucket's kernel, applies the float-to-double
     rescue policy and returns the (n,) float64 log10 likelihoods in pair
-    order.  Resolving twice returns the same array.
+    order.  A ``"lazy"`` group (past the in-flight budget) is launched when
+    it is reached, and the next lazy group one ahead of each fetch.
+    Resolving twice returns the same array.
     """
 
     def __init__(self, hmm: PairHMM, n: int, work, t0: float, cells: int):
@@ -384,7 +402,14 @@ class PendingLikelihoods:
             return self._out
         hmm = self._hmm
         out = np.zeros(self._n, np.float64)
-        for kind, idxs, packed, launch in self._work:
+        work = list(self._work)
+        for k in range(len(work)):
+            # keep the next lazy group dispatched one ahead of this fetch, so
+            # that its upload and kernel overlap the wait and rescue below
+            for i in (k, k + 1):
+                if i < len(work) and work[i][0] == "lazy":
+                    work[i] = hmm._dispatch_group(*work[i][1:3])
+            kind, idxs, packed, launch = work[k]
             if kind == "f64":
                 haps, rds, quals = zip(*packed)
                 out[:] = pairhmm_ref.pairhmm_scalar_batch(

@@ -1,9 +1,10 @@
 """Batch planning: padding/bucketing variable-length pairs into fixed shapes.
 
 Counterpart of ``gkl_tpu/batch.py``.  Lengths pad to a small
-ladder of buckets so one kernel launch serves a whole shape class; the
-arrays are (length, lane) so neighbouring lanes sit at neighbouring
-addresses, which is what the CUDA kernel's one-thread-per-lane loads want.
+ladder of buckets so one kernel launch serves a whole shape class.  The
+arrays are (length, lane), the JAX package's layout; the PairHMM kernels
+gather each lane's columns from them by index, and the Smith-Waterman
+wrapper transposes its two small planes to (lane, length) on the device.
 """
 
 from __future__ import annotations
@@ -115,6 +116,23 @@ class PackedPairsIndexed:
     haplen: np.ndarray  # (P,) int32
     rslen: np.ndarray  # (P,) int32
     n_real: int
+
+    def device_bytes(self) -> int:
+        """Device bytes of this batch while its launch is in flight: the
+        unique planes and the four (P,) int32 index and length vectors as
+        uploaded, the three (H, P) f32 boundary planes that the scaled, row
+        and column kernels hand from band to band or pass to pass, and the
+        output, counted as the scaled kernel's (3, P) int32 (the column
+        kernel's (P,) f32 is smaller).  ``gkl_tpu/batch.py``'s count
+        differs: it charges the per-pair planes that its ``jnp.take``
+        expands on the device, ``(H + 5R) * P``, which the port never
+        builds (its kernels gather by index), and no boundary planes."""
+        P = self.ridx.shape[0]
+        H = self.hap_u.shape[0]
+        planes = self.hap_u.nbytes + self.readq_u.nbytes
+        if self.quals_u is not None:
+            planes += self.quals_u.nbytes
+        return planes + 4 * 4 * P + 3 * 4 * H * P + 12 * P
 
     def materialize(self) -> PackedPairs:
         """Expand to the dense per-pair representation (host-side)."""

@@ -4,8 +4,10 @@ Every ``gkl_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` per source, all started together, and linked
 into one shared library with a plain C interface, loaded with ctypes.  No
 PyTorch header is included, so the build takes seconds.  The library is
-cached in ``build/gkl_tpu_torch/`` by a hash of the sources and flags; a
-failed build raises :class:`native_lib.BuildError`.
+cached in ``native_lib.build_dir()`` (``GKL_TPU_CACHE_DIR`` when it is
+set, else ``build/gkl_tpu_torch/``) by a hash of the sources and flags; a
+failed build raises :class:`native_lib.BuildError`.  It is always built
+from ``csrc/``: ``GKL_TPU_LIBRARY_PATH`` serves only the host libraries.
 """
 
 from __future__ import annotations
@@ -75,13 +77,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # cudaStream_t
     ]
     lib.gkl_sw_forward.argtypes = [
-        vp, i32,                 # ref (N, P) u8; N
-        vp, i32,                 # alt (M, P) u8; M
+        vp, i32,                 # ref (P, N) u8, lane-major; N
+        vp, i32,                 # alt (P, M) u8, lane-major; M
         vp, vp, i32,             # reflen, altlen (P,) i32; P
         i32, i32, i32, i32,      # match, mismatch, open, extend
         i32,                     # indel boundary (0/1)
-        vp, vp,                  # H, F (M, P) i32 scratch
-        vp, vp, vp,              # bt (N/2, M, P) u8, lastrow (M, P), lastcol (N, P) i32
+        vp, vp,                  # H, F (P, M) i32: the boundary row between passes
+        vp, vp, vp,              # bt (P, N/2, M) u8, lastrow (M, P), lastcol (P, N) i32
+        i32,                     # rows per thread: 2, 4 or 8
         vp,                      # cudaStream_t
     ]
     lib.gkl_pdhmm.argtypes = [

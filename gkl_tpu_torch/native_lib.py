@@ -3,10 +3,20 @@
 The port keeps its own byte-identical copy of the JAX package's C++ runtime
 sources in ``gkl_tpu_torch/native/`` (the originals are in
 ``gkl_tpu/native/``; the port reads nothing there) and compiles them with
-g++ on first use into ``build/gkl_tpu_torch/`` under the repository root,
-keyed by a hash of the sources, flags and host CPU.  Unlike the JAX
-package, a failed build raises: the port has no pure-Python fallbacks for
-these libraries.
+g++ on first use, keyed by a hash of the sources, flags and host CPU, into
+:func:`build_dir`.  It reads the JAX package's two settings:
+
+* ``GKL_TPU_CACHE_DIR`` — build here (the host libraries and the CUDA
+  kernel library) instead of ``build/gkl_tpu_torch/`` under the repository
+  root; file names carry the host key, so hosts may share the directory;
+* ``GKL_TPU_LIBRARY_PATH`` — load the prebuilt host libraries
+  (``lib<name>.so``) from this directory instead of compiling.  The CUDA
+  kernel library is never taken from it: ``cuda_build`` always builds the
+  kernels from ``csrc/``.
+
+Unlike the JAX package, a failed build or a library missing under
+``GKL_TPU_LIBRARY_PATH`` raises: the port has no pure-Python fallbacks for
+these libraries, and no ``GKL_TPU_NATIVE=0``.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import subprocess
 import threading
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILD_DIR = os.path.join(REPO_ROOT, "build", "gkl_tpu_torch")
+DEFAULT_BUILD_DIR = os.path.join(REPO_ROOT, "build", "gkl_tpu_torch")
 NATIVE_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 
 _SRC = {
@@ -38,7 +48,14 @@ _lock = threading.Lock()
 
 
 class BuildError(RuntimeError):
-    """A native or CUDA library failed to compile."""
+    """A native or CUDA library failed to compile, or is not where
+    ``GKL_TPU_LIBRARY_PATH`` says."""
+
+
+def build_dir() -> str:
+    """Where libraries are built: ``GKL_TPU_CACHE_DIR`` when it is set,
+    else ``build/gkl_tpu_torch/`` under the repository root."""
+    return os.environ.get("GKL_TPU_CACHE_DIR") or DEFAULT_BUILD_DIR
 
 
 def _host_tag() -> str:
@@ -60,8 +77,8 @@ def build_shared_library(name: str, sources: list[str], command: list[str],
                          link: list[str] = (), key_extra: str = "",
                          compile_each: bool = False) -> str:
     """Compile ``sources`` with ``command -o out sources link`` into
-    ``BUILD_DIR`` unless a library built from the same sources and command
-    is already there; returns its path.  With ``compile_each`` every source
+    :func:`build_dir` unless a library built from the same sources and
+    command is already there; returns its path.  With ``compile_each`` every source
     is first compiled alone (``command -c``), all at once, and the objects
     are linked.  The compiler's messages are kept beside the library in
     ``<path>.log``.  A file lock serialises concurrent builds by several
@@ -72,11 +89,12 @@ def build_shared_library(name: str, sources: list[str], command: list[str],
     for s in sources:
         with open(s, "rb") as f:
             h.update(f.read())
-    so_path = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    out_dir = build_dir()
+    so_path = os.path.join(out_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
     if os.path.exists(so_path):
         return so_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock_file:
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}.lock"), "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         if os.path.exists(so_path):
             return so_path
@@ -107,17 +125,24 @@ def build_shared_library(name: str, sources: list[str], command: list[str],
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Load (building if needed) a host runtime library by name."""
+    """Load a host runtime library by name: prebuilt from
+    ``GKL_TPU_LIBRARY_PATH`` when it is set, else built if needed."""
     if name not in _SRC:
         raise ValueError(f"unknown native library: {name!r}")
     with _lock:
         lib = _cache.get(name)
         if lib is None:
-            sources = [os.path.join(NATIVE_SRC_DIR, s) for s in _SRC[name]]
-            # -march=native is safe: libraries compile on the host that
-            # runs them, and the cache key carries that host's CPU flags
-            cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
-            path = build_shared_library(name, sources, cmd, _LINK[name],
-                                        key_extra=_host_tag())
+            prebuilt = os.environ.get("GKL_TPU_LIBRARY_PATH")
+            if prebuilt:
+                path = os.path.join(prebuilt, f"lib{name}.so")
+                if not os.path.exists(path):
+                    raise BuildError(f"GKL_TPU_LIBRARY_PATH={prebuilt} holds no lib{name}.so")
+            else:
+                sources = [os.path.join(NATIVE_SRC_DIR, s) for s in _SRC[name]]
+                # -march=native is safe: libraries compile on the host that
+                # runs them, and the cache key carries that host's CPU flags
+                cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+                path = build_shared_library(name, sources, cmd, _LINK[name],
+                                            key_extra=_host_tag())
             lib = _cache[name] = ctypes.CDLL(path)
         return lib

@@ -181,6 +181,122 @@ def test_sw_kernel_matches_twin(cuda_device, N, M, P, indel_boundary):
     assert sw_cuda.in_range_mismatches(got, want, args[2], args[3]) == 0
 
 
+SW_GATK = (200, -150, -260, -11)
+
+
+def _sw_lengths(batch, reflen=(), altlen=()):
+    """``batch`` with the first lanes' reference and alt lengths set."""
+    ref, alt, rl, al = batch
+    rl, al = rl.copy(), al.copy()
+    rl[:len(reflen)] = reflen
+    al[:len(altlen)] = altlen
+    return ref, alt, rl, al
+
+
+def _force_sw_rows(monkeypatch, rows):
+    """Launch the SW kernel's instance of ``rows`` rows a thread at any N."""
+    from gkl_tpu_torch.ops import sw_cuda
+
+    monkeypatch.setattr(sw_cuda, "sw_geometry", lambda N: (rows, 32 * rows, -(-N // (32 * rows))))
+
+
+def _sw_kernel_equals_twin(dev, arrays, indel_boundary, params=SW_GATK):
+    """One launch of the SW kernel against its twin on the same card
+    tensors: 0 in-range mismatches.  Returns the kernel's result."""
+    from gkl_tpu_torch.ops import sw as sw_ops
+    from gkl_tpu_torch.ops import sw_cuda
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    launches = sw_cuda.LAUNCHES
+    got = sw_cuda.sw_forward(*args, *params, indel_boundary=indel_boundary)
+    assert sw_cuda.LAUNCHES == launches + 1
+    want = sw_ops.sw_forward(*args, *params, indel_boundary=indel_boundary, pack_bt=True)
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
+    assert sw_cuda.in_range_mismatches(got, want, args[2], args[3]) == 0
+    return got
+
+
+@pytest.mark.parametrize("indel_boundary", [False, True])
+@pytest.mark.parametrize("rows", [2, 4, 8])
+def test_sw_kernel_instances_at_pass_edges(cuda_device, monkeypatch, rows, indel_boundary):
+    """Every instance of the warp-wavefront SW kernel equals the twin with
+    reflen on either side of its first and second pass edges (32 * rows
+    +- 1, 64 * rows +- 1), a lane over every row, and lanes of 1 row."""
+    _force_sw_rows(monkeypatch, rows)
+    e = 32 * rows
+    N = 3 * e + 8
+    _sw_kernel_equals_twin(cuda_device, _sw_lengths(
+        _sw_batch(N, 40, 16, seed=rows), reflen=[e - 1, e, e + 1, 2 * e - 1, 2 * e, 2 * e + 1,
+                                                  N, 1, 1]), indel_boundary)
+
+
+@pytest.mark.parametrize("indel_boundary", [False, True])
+def test_sw_kernel_one_row_and_one_column_lanes(cuda_device, indel_boundary):
+    """Lanes of 1 reference row, of 1 alt column and of both, beside lanes
+    past one pass (the 8-row instance at N = 600)."""
+    _sw_kernel_equals_twin(cuda_device, _sw_lengths(
+        _sw_batch(600, 64, 12, seed=31), reflen=[1, 1, 1, 600, 257], altlen=[1, 64, 7, 1, 1]),
+        indel_boundary)
+
+
+@pytest.mark.parametrize("indel_boundary", [False, True])
+@pytest.mark.parametrize("M", [8, 24])
+def test_sw_kernel_alt_rungs_not_multiples_of_16(cuda_device, M, indel_boundary):
+    """N past one pass with the ladder's rungs M = 8 and M = 24: each bt
+    word of 8 columns lands whole, and so does the last partial one."""
+    _sw_kernel_equals_twin(cuda_device, _sw_lengths(
+        _sw_batch(600, M, 24, seed=M), altlen=[M, M - 1, 1, 5, M // 2 + 1]), indel_boundary)
+
+
+@pytest.mark.parametrize("indel_boundary", [False, True])
+def test_sw_kernel_lengths_10x_apart(cuda_device, indel_boundary):
+    """Lanes whose lengths differ 10x in one block (4 warps, a lane each):
+    each runs its own reflen x altlen."""
+    ref, alt, rl, al = _sw_batch(480, 320, 16, seed=41)
+    rl[1::2], al[1::2] = 48, 32
+    rl[0::2], al[0::2] = 480, 320
+    _sw_kernel_equals_twin(cuda_device, (ref, alt, rl, al), indel_boundary)
+
+
+@pytest.mark.parametrize("case", ["32767_ref_x_1000_alt", "1000_ref_x_32767_alt"])
+def test_sw_kernel_at_the_length_limit(cuda_device, case):
+    """A pair at the 32,767-base limit beside shorter lanes, in one launch
+    (128 passes of the 8-row instance, or 32,767 columns a pass)."""
+    from gkl_tpu_torch import batch as tbatch
+
+    rng = np.random.default_rng(51)
+    n, m = (32767, 1000) if case.startswith("32767") else (1000, 32767)
+    N, M = tbatch.bucket_length(n), tbatch.bucket_length(m)
+    ref = BASES[rng.integers(0, 4, (N, 8))]
+    alt = np.resize(ref[100:], (M, 8)).copy()
+    mut = rng.random((M, 8)) < 0.03
+    alt[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    rl = np.array([n, 300, 1, n // 2, 77, n, 2, 999], np.int32)
+    al = np.array([m, 64, 9, m // 3, 1, m // 2, 640, m], np.int32)
+    _sw_kernel_equals_twin(cuda_device, (ref, alt, rl, al), indel_boundary=False)
+
+
+@pytest.mark.parametrize("indel_boundary", [False, True])
+def test_sw_kernel_malformed_lanes_beside_good_ones(cuda_device, indel_boundary):
+    """Lanes with a length out of range write nothing (their outputs stay
+    zero), and the good lanes of their blocks equal the twin."""
+    from gkl_tpu_torch.ops import sw as sw_ops
+    from gkl_tpu_torch.ops import sw_cuda
+
+    ref, alt, rl, al = (torch.from_numpy(a).to(cuda_device)
+                        for a in _sw_batch(200, 48, 1056, seed=61))
+    bad = torch.tensor([1, 6, 1030, 1055], device=cuda_device)
+    rl[1], al[6], rl[1030], al[1055] = 0, 49, 201, -3
+    got = sw_cuda.sw_forward(ref, alt, rl, al, *SW_GATK, indel_boundary=indel_boundary)
+    good = torch.ones(1056, dtype=torch.bool, device=cuda_device)
+    good[bad] = False
+    assert not got[0][bad].any() and not got[1][:, bad].any() and not got[2][bad].any()
+    want = sw_ops.sw_forward(ref[:, good], alt[:, good], rl[good], al[good], *SW_GATK,
+                             indel_boundary=indel_boundary, pack_bt=True)
+    assert sw_cuda.in_range_mismatches((got[0][good], got[1][:, good], got[2][good]), want,
+                                       rl[good], al[good]) == 0
+
+
 def test_sw_api_on_card_matches_scalar(cuda_device):
     """SmithWaterman on CUDA: the kernel runs and every strategy's CIGAR and
     offset equal the native scalar aligner's."""

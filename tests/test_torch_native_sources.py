@@ -4,9 +4,12 @@ Every source that ``native_lib`` and ``cuda_build`` compile lies under
 ``gkl_tpu_torch/``.  The port's copies of the JAX package's runtime sources
 (``gkl_tpu_torch/native/``) are byte-identical to their originals in
 ``gkl_tpu/native/``, so the f64 oracles that the port's rescues run are the
-reference's.  Nothing here compiles a kernel: the build calls are recorded
-and stopped before the compiler runs, save one g++ build of the PairHMM
-oracle from a copy of the package alone."""
+reference's.  The build settings the port shares with the JAX package are
+honoured: ``GKL_TPU_CACHE_DIR`` (where every library builds) and
+``GKL_TPU_LIBRARY_PATH`` (prebuilt host libraries; never the kernels).
+Nothing here compiles a kernel: the build calls are recorded and stopped
+before the compiler runs, save two g++ builds, of the PairHMM oracle from a
+copy of the package alone and of the BAM scanner into a cache directory."""
 
 import os
 import shutil
@@ -93,6 +96,87 @@ def test_cuda_build_reads_only_the_port(monkeypatch):
     assert sorted(os.path.basename(s) for s in sources) == [
         "pairhmm_cols.cu", "pairhmm_scaled.cu", "pdhmm.cu", "sw_forward.cu"]
     assert all(_in_port(s) for s in sources), sources
+
+
+@pytest.fixture
+def fresh_loaders(monkeypatch):
+    """The loaders' module caches emptied and the build settings unset, all
+    restored after the test."""
+    monkeypatch.setattr(native_lib, "_cache", {})
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    monkeypatch.setattr(cuda_build, "_path", None)
+    monkeypatch.delenv("GKL_TPU_CACHE_DIR", raising=False)
+    monkeypatch.delenv("GKL_TPU_LIBRARY_PATH", raising=False)
+    return monkeypatch
+
+
+@pytest.fixture(scope="module")
+def built_bam_library(tmp_path_factory):
+    """``gkl_bam`` (the smallest host library) built once with
+    ``GKL_TPU_CACHE_DIR`` pointing at a fresh directory: (directory, path)."""
+    cache = tmp_path_factory.mktemp("cache")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native_lib, "_cache", {})
+        mp.delenv("GKL_TPU_LIBRARY_PATH", raising=False)
+        mp.setenv("GKL_TPU_CACHE_DIR", str(cache))
+        path = native_lib.load("gkl_bam")._name
+    return cache, path
+
+
+def test_cache_dir_is_where_host_libraries_build(built_bam_library, fresh_loaders):
+    cache, path = built_bam_library
+    assert os.path.dirname(path) == str(cache)
+    assert os.path.basename(path).startswith("libgkl_bam-") and os.path.exists(path)
+    assert native_lib.build_dir() == native_lib.DEFAULT_BUILD_DIR
+    fresh_loaders.setenv("GKL_TPU_CACHE_DIR", str(cache))
+    assert native_lib.build_dir() == str(cache)
+
+
+def test_library_path_loads_prebuilt_without_compiling(built_bam_library, fresh_loaders,
+                                                       tmp_path):
+    _, path = built_bam_library
+    shutil.copy(path, tmp_path / "libgkl_bam.so")
+    fresh_loaders.setenv("GKL_TPU_LIBRARY_PATH", str(tmp_path))
+    seen = _record_builds(fresh_loaders)
+    lib = native_lib.load("gkl_bam")
+    assert lib._name == str(tmp_path / "libgkl_bam.so") and not seen
+    assert native_lib.load("gkl_bam") is lib
+
+
+def test_library_path_missing_library_raises(fresh_loaders, tmp_path):
+    """A library missing under ``GKL_TPU_LIBRARY_PATH`` raises; the port
+    neither compiles it instead nor returns None."""
+    fresh_loaders.setenv("GKL_TPU_LIBRARY_PATH", str(tmp_path))
+    seen = _record_builds(fresh_loaders)
+    with pytest.raises(native_lib.BuildError, match="libgkl_sw_runtime.so"):
+        native_lib.load("gkl_sw_runtime")
+    assert not seen and "gkl_sw_runtime" not in native_lib._cache
+
+
+def test_cuda_build_goes_to_cache_dir_from_csrc(fresh_loaders, tmp_path):
+    """The kernel library compiles into ``GKL_TPU_CACHE_DIR``, from ``csrc/``,
+    even with ``GKL_TPU_LIBRARY_PATH`` holding a library of its name: the
+    compiler's first command is recorded and stopped (no nvcc runs)."""
+    prebuilt = tmp_path / "prebuilt"
+    prebuilt.mkdir()
+    (prebuilt / "libgkl_tpu_torch_kernels.so").write_bytes(b"not a library")
+    fresh_loaders.setenv("GKL_TPU_CACHE_DIR", str(tmp_path / "cache"))
+    fresh_loaders.setenv("GKL_TPU_LIBRARY_PATH", str(prebuilt))
+    fresh_loaders.setattr(cuda_build, "nvcc_path", lambda: "nvcc")
+    commands = []
+
+    def popen(args, **kw):
+        commands.append(args)
+        raise _Stop(args)
+
+    fresh_loaders.setattr(native_lib.subprocess, "Popen", popen)
+    with pytest.raises(_Stop):
+        cuda_build.load()
+    [args] = commands
+    out = args[args.index("-o") + 1]
+    assert os.path.dirname(out) == str(tmp_path / "cache")
+    assert os.path.basename(out).startswith("libgkl_tpu_torch_kernels-")
+    assert _in_port(args[-1]) and args[-1].endswith(".cu")
 
 
 def test_port_builds_without_the_jax_package(tmp_path):

@@ -91,12 +91,24 @@ def test_rescue_is_lane_granular(monkeypatch):
     np.testing.assert_allclose(out[list(deep_lanes)], f64, rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("mode,expected", [("host", 3), ("device", 0)])
-def test_rescue_policy_modes(monkeypatch, mode, expected):
+@pytest.mark.parametrize("mode,expected,exact", [
+    pytest.param("host", 3, False, id="host-3"),
+    pytest.param("device", 0, False, id="device-0"),
+    pytest.param("host", 3, True, id="exact-host-3"),
+    pytest.param("device", 3, True, id="exact-device-3"),
+    pytest.param("flagged", 3, True, id="exact-flagged-3"),
+])
+def test_rescue_policy_modes(monkeypatch, mode, expected, exact):
     """GKL_TPU_RESCUE=host rescues every lane under the f32 range;
-    =device trusts the scaled result wherever it is finite."""
+    =device trusts the scaled result wherever it is finite;
+    GKL_TPU_EXACT_RESCUE=1 rescues every such lane whatever the mode says,
+    as in gkl_tpu/api.py."""
     monkeypatch.setenv("GKL_TPU_METRICS", "1")
     monkeypatch.setenv("GKL_TPU_RESCUE", mode)
+    if exact:
+        monkeypatch.setenv("GKL_TPU_EXACT_RESCUE", "1")
+    else:
+        monkeypatch.delenv("GKL_TPU_EXACT_RESCUE", raising=False)
     reads, haps, deep_lanes = _deep_rescue_batch()
     profiling.METRICS.reset()
     out = PairHMM(device="cpu").compute_likelihoods(reads, haps)
@@ -104,17 +116,24 @@ def test_rescue_policy_modes(monkeypatch, mode, expected):
     assert np.isfinite(out).all() and (out[list(deep_lanes)] < -70).all()
 
 
-def test_slice_parity_with_jax(monkeypatch):
-    """The same reads and haps through ``gkl_tpu.PairHMM`` (the Pallas scaled
-    kernel in interpret mode, on the deduplicated path) and through the
-    port agree at 1e-5, across mixed length buckets, with and without
-    constant GOP planes."""
+def _interpret_jax_pairhmm(monkeypatch):
+    """``gkl_tpu.PairHMM`` on its deduplicated path with the Pallas scaled
+    kernel in interpret mode, as ``test_slice_parity_with_jax`` runs it."""
     from gkl_tpu import api as japi
     from gkl_tpu.ops import pairhmm_pallas
 
     def interp_scaled(*args, lane_block=128, **kw):
         return pairhmm_pallas.pairhmm_raw_pallas_scaled(*args, lane_block=8, interpret=True)
 
+    monkeypatch.setattr(japi, "_scaled_inner_fn", lambda: interp_scaled)
+    monkeypatch.setattr(gkl_tpu.PairHMM, "_use_pallas", classmethod(lambda cls, hap_len=0: True))
+
+
+def test_slice_parity_with_jax(monkeypatch):
+    """The same reads and haps through ``gkl_tpu.PairHMM`` (the Pallas scaled
+    kernel in interpret mode, on the deduplicated path) and through the
+    port agree at 1e-5, across mixed length buckets, with and without
+    constant GOP planes."""
     cases = golden.load_pairhmm_cases()[:8]
     reads, _ = _golden_reads(cases)
     haps = [HaplotypeData(c.hap) for c in cases[:4]]
@@ -124,8 +143,7 @@ def test_slice_parity_with_jax(monkeypatch):
                    for c in cases]
     assert api._const_quals_of(const_reads) == (45, 45, 10)
 
-    monkeypatch.setattr(japi, "_scaled_inner_fn", lambda: interp_scaled)
-    monkeypatch.setattr(gkl_tpu.PairHMM, "_use_pallas", classmethod(lambda cls, hap_len=0: True))
+    _interpret_jax_pairhmm(monkeypatch)
     for rds in (reads, const_reads):
         j_reads = [gkl_tpu.ReadData(r.read_bases, r.read_quals, r.insertion_gop,
                                     r.deletion_gop, r.overall_gcp) for r in rds]
@@ -135,6 +153,130 @@ def test_slice_parity_with_jax(monkeypatch):
         want = pending.result()
         got = PairHMM(device="cpu").compute_likelihoods(rds, haps)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _spy_rescues(monkeypatch, cls, seen):
+    """Record the lanes each ``_f64_lanes`` call of ``cls`` recomputes."""
+    real = cls._f64_lanes
+
+    def spy(self, pk, lanes, *args, **kw):
+        seen.extend(int(k) for k in lanes)
+        return real(self, pk, lanes, *args, **kw)
+
+    monkeypatch.setattr(cls, "_f64_lanes", spy)
+
+
+def test_exact_rescue_parity_with_jax(monkeypatch):
+    """With GKL_TPU_EXACT_RESCUE=1 (and GKL_TPU_RESCUE=device, which alone
+    would rescue nothing) the port rescues the lanes ``gkl_tpu.PairHMM``
+    rescues on the same reads, and their results are the same f64 values;
+    the other lanes agree at 1e-5."""
+    _interpret_jax_pairhmm(monkeypatch)
+    monkeypatch.setenv("GKL_TPU_RESCUE", "device")
+    monkeypatch.setenv("GKL_TPU_EXACT_RESCUE", "1")
+    reads, haps, deep_lanes = _deep_rescue_batch()
+    reads = reads[:8] + [reads[17], reads[900]] + reads[8:14] + [reads[3000]]
+    deep = [8, 9, 16]
+    j_seen, t_seen = [], []
+    _spy_rescues(monkeypatch, gkl_tpu.PairHMM, j_seen)
+    _spy_rescues(monkeypatch, PairHMM, t_seen)
+    j_reads = [gkl_tpu.ReadData(r.read_bases, r.read_quals, r.insertion_gop,
+                                r.deletion_gop, r.overall_gcp) for r in reads]
+    want = gkl_tpu.PairHMM().compute_likelihoods(
+        j_reads, [gkl_tpu.HaplotypeData(h.haplotype_bases) for h in haps])
+    got = PairHMM(device="cpu").compute_likelihoods(reads, haps)
+    assert sorted(t_seen) == sorted(j_seen) == deep
+    np.testing.assert_array_equal(got[deep], want[deep])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _mixed_buckets():
+    """8 golden cases whose reads and haplotypes fall in 4 length buckets
+    each: 16 read-group x hap-group batches."""
+    return _golden_reads(golden.load_pairhmm_cases()[::12][:8])
+
+
+def _dispatched_kinds(monkeypatch):
+    """Record the kind of each work item that ``PairHMM._dispatch_group``
+    launches (a test clears the list to keep only ``result()``'s)."""
+    kinds = []
+    real = PairHMM._dispatch_group
+
+    def spy(self, idxs, pk):
+        live = real(self, idxs, pk)
+        kinds.append(live[0])
+        return live
+
+    monkeypatch.setattr(PairHMM, "_dispatch_group", spy)
+    return kinds
+
+
+def test_async_inflight_budget_defers_groups(monkeypatch):
+    """With the in-flight byte budget forced to 1 byte, every group after
+    the first is ``"lazy"`` at dispatch and goes to the device from
+    ``result()``, and the numbers equal the synchronous call's (the JAX
+    package's ``tests/test_pairhmm.py`` contract, on the port)."""
+    reads, haps = _mixed_buckets()
+    hmm = PairHMM(device="cpu")
+    sync = hmm.compute_likelihoods(reads, haps)
+    monkeypatch.setattr(PairHMM, "_ASYNC_INFLIGHT_BYTES", 1)
+    lazy = _dispatched_kinds(monkeypatch)
+    pending = hmm.compute_likelihoods_async(reads, haps)
+    lazy.clear()
+    kinds = [w[0] for w in pending._work]
+    assert len(kinds) > 2 and kinds[0] == "scaled"
+    assert kinds[1:] == ["lazy"] * (len(kinds) - 1)
+    np.testing.assert_array_equal(pending.result(), sync)
+    assert lazy == ["scaled"] * (len(kinds) - 1)
+    np.testing.assert_array_equal(pending.result(), sync)  # resolving twice
+
+
+def test_async_inflight_budget_defers_long_haplotype_group(monkeypatch):
+    """A deferred group whose haplotype bucket passes ``PALLAS_MAX_HAP``
+    comes back from ``result()`` as an ``"f32"`` item on the column kernel's
+    twin, with the synchronous call's numbers."""
+    rng = np.random.default_rng(3)
+    long_hap = BASES[rng.integers(0, 4, 2100)]
+    haps = [HaplotypeData(long_hap[:40].copy()), HaplotypeData(long_hap)]
+    reads = []
+    for start in (5, 700, 1500):
+        seq = long_hap[start:start + 24].copy()
+        q = rng.integers(20, 40, 24).astype(np.uint8)
+        reads.append(ReadData(seq, q, *(np.full(24, v, np.uint8) for v in (45, 45, 10))))
+    hmm = PairHMM(device="cpu")
+    sync = hmm.compute_likelihoods(reads, haps)
+    monkeypatch.setattr(PairHMM, "_ASYNC_INFLIGHT_BYTES", 1)
+    lazy = _dispatched_kinds(monkeypatch)
+    pending = hmm.compute_likelihoods_async(reads, haps)
+    lazy.clear()
+    assert [w[0] for w in pending._work] == ["scaled", "lazy"]
+    np.testing.assert_array_equal(pending.result(), sync)
+    assert lazy == ["f32"]
+
+
+def test_device_bytes_counts_the_ports_footprint(monkeypatch):
+    """``device_bytes`` is what ``PairHMM._dispatch`` uploads, plus the three
+    (H, P) f32 boundary planes and the (3, P) int32 output, for batches with
+    the gap quals as planes and as constants; the default budget holds
+    such a group."""
+    uploads = []
+    real = PairHMM._launch
+
+    def spy(self, arrays, kernel):
+        uploads.append(sum(np.asarray(v).nbytes for v in arrays.values()))
+        return real(self, arrays, kernel)
+
+    monkeypatch.setattr(PairHMM, "_launch", spy)
+    reads, haps = _golden_reads(golden.load_pairhmm_cases()[:3])
+    rq = [(r.read_quals, r.insertion_gop, r.deletion_gop, r.overall_gcp) for r in reads]
+    for const in (None, (45, 45, 10)):
+        pk = tbatch.pack_pairs_indexed([h.haplotype_bases for h in haps],
+                                       [r.read_bases for r in reads], rq, const_quals=const)
+        H, P = pk.hap_u.shape[0], pk.ridx.shape[0]
+        PairHMM(device="cpu")._dispatch(pk, lambda **t: torch.zeros((3, P), dtype=torch.int32))
+        assert pk.device_bytes() == uploads[-1] + 3 * 4 * H * P + 12 * P
+        assert 0 < pk.device_bytes() < PairHMM._ASYNC_INFLIGHT_BYTES
+    assert uploads[0] - uploads[1] == 3 * pk.readq_u.shape[1] * pk.readq_u.shape[2]
 
 
 def test_const_quals_detection():

@@ -171,6 +171,29 @@ def test_wrapper_cpu_runs_twin_and_in_range_compare():
         sw_cuda.sw_forward(ref[:-1], alt, reflen, altlen, *GATK, indel_boundary=False)
 
 
+def test_sw_geometry_every_bucket():
+    """The kernel's geometry for every reference bucket up to the 32,767
+    limit: an even number of rows a thread (whole bt bytes), the smallest
+    instance whose one pass holds the bucket, else 8 rows a thread and
+    enough 256-row passes to cover it."""
+    from gkl_tpu_torch import batch as tbatch
+
+    buckets = sorted({tbatch.bucket_length(n) for n in range(1, 32768, 7)} | {32768})
+    for N in buckets:
+        rows, pass_rows, passes = sw_cuda.sw_geometry(N)
+        assert rows in sw_cuda.ROWS_PER_THREAD and rows % 2 == 0
+        assert pass_rows == 32 * rows and (passes - 1) * pass_rows < N <= passes * pass_rows
+        if N <= 256:
+            assert passes == 1 and (rows == 2 or 16 * rows < N)
+        else:
+            assert rows == 8
+    assert [sw_cuda.sw_geometry(N)[0] for N in (8, 64, 96, 128, 160, 448, 4096)] == \
+        [2, 2, 4, 4, 8, 8, 8]
+    assert sw_cuda.sw_geometry(448)[2] == 2 and sw_cuda.sw_geometry(32768)[2] == 128
+    with pytest.raises(ValueError):
+        sw_cuda.sw_geometry(0)
+
+
 @pytest.mark.parametrize("strategy", STRATEGIES, ids=[s.name for s in STRATEGIES])
 def test_api_matches_jax(strategy):
     """SmithWaterman(device="cpu") against the JAX SmithWaterman: CIGAR and
