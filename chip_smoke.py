@@ -9,7 +9,7 @@ before printing any result.  Phases, one line each (or a few):
 1. build: the CUDA kernels (one nvcc per source, sm_90a, all started
    together, linked into one library) and the host C++ libraries, with
    the registers and spills of both instances of the row kernel and of
-   each instance of the column and SW kernels;
+   each instance of the column, SW and PDHMM kernels;
 2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
    shape (R=128, H=224, P=2048), with the gap quals as planes and as the
    GATK constants, both timed; and on a deep-lane batch.  Each is also held
@@ -35,8 +35,9 @@ before printing any result.  Phases, one line each (or a few):
    (c) two pairs at the 32,767-base limit through ``SmithWaterman`` against
    the native scalar aligner;
 8. PDHMM kernel vs twin (in-range lanes at 1e-5 in log10, the same lanes
-   below MIN_ACCEPTED): (a) R=256, H=448, P=8,192; (b) R=1,024, H=512,
-   P=512;
+   below MIN_ACCEPTED) and bit for bit vs the twin in the kernel's order:
+   (a) R=256, H=448, P=8,192; (b) R=1,024, H=512, P=512, each with the
+   launch's geometry (rows a thread, passes, warps);
 9. the 3 PDHMM golden files through ``PDHMM()`` in both precision modes;
 10. ``pipeline.region_bam`` against every column of
     ``tests/data/region_golden.txt``, then the whole test BAM with a sample
@@ -47,9 +48,10 @@ before printing any result.  Phases, one line each (or a few):
     ``PDHMM.compute_likelihoods``): the main path, whose launches of all
     three kernels are counted, checked against the oracles as
     ``gkl_tpu/validation.py::check_corpus`` does, timed median of 3 (the
-    first run's PairHMM and SW launches also by CUDA events).  Each SW and PDHMM
-    launch of its first run is held against the twin on the same tensors,
-    at the shapes the path gave it;
+    first run's PairHMM, SW and PDHMM launches also by CUDA events).  Each
+    SW and PDHMM launch of its first run is held against the twin on the
+    same tensors, at the shapes the path gave it, the PDHMM launch also bit
+    for bit against the twin in the kernel's order;
 12. the long-haplotype kernels vs their twins, timed: (a) the rows kernel
     (the scaled kernel's plain instance) through ``PairHMM._raw_batch``,
     the dense batch's entry point, at phase 2's shape, also held against
@@ -406,25 +408,21 @@ def phase_build():
     for line in build_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log("1 build", ptxas=line.strip().replace(" ", "_"))
-    from gkl_tpu_torch.ops import pairhmm_cols
+    from gkl_tpu_torch.ops import pairhmm_cols, pdhmm_cuda, sw_cuda
     row_instances = kernel_instances(build_log, r"pairhmm_kernelILb([01])E")
     for flag, kernel in (("1", "pairhmm_scaled"), ("0", "pairhmm_rows")):
         if flag not in row_instances:
             raise AssertionError(f"no {kernel} instance in the ptxas log")
         log("1 build", kernel=kernel, **row_instances[flag])
-    instances = kernel_instances(build_log, r"pairhmm_cols_kernelILi(\d+)E")
-    for rows in pairhmm_cols.ROWS_PER_THREAD:
-        if str(rows) not in instances:
-            raise AssertionError(f"no pairhmm_cols instance for {rows} rows a thread in the "
-                                 f"ptxas log")
-        log("1 build", kernel="pairhmm_cols", rows_per_thread=rows, **instances[str(rows)])
-    from gkl_tpu_torch.ops import sw_cuda
-    instances = kernel_instances(build_log, r"sw_forward_kernelILi(\d+)E")
-    for rows in sw_cuda.ROWS_PER_THREAD:
-        if str(rows) not in instances:
-            raise AssertionError(f"no sw_forward instance for {rows} rows a thread in the "
-                                 f"ptxas log")
-        log("1 build", kernel="sw_forward", rows_per_thread=rows, **instances[str(rows)])
+    for kernel, entry, module in (("pairhmm_cols", "pairhmm_cols_kernel", pairhmm_cols),
+                                  ("sw_forward", "sw_forward_kernel", sw_cuda),
+                                  ("pdhmm", "pdhmm_kernel", pdhmm_cuda)):
+        instances = kernel_instances(build_log, entry + r"ILi(\d+)E")
+        for rows in module.ROWS_PER_THREAD:
+            if str(rows) not in instances:
+                raise AssertionError(f"no {kernel} instance for {rows} rows a thread in the "
+                                     f"ptxas log")
+            log("1 build", kernel=kernel, rows_per_thread=rows, **instances[str(rows)])
 
 
 def kernel_instances(build_log: str, pattern: str) -> dict:
@@ -887,6 +885,21 @@ def compare_raw(k_raw, t_raw, what, near=0.0):
     return err, int(below_t.sum())
 
 
+def pdhmm_lanes_not_bit_equal(k_raw, t, what) -> int:
+    """Hold a PDHMM kernel result against the twin in the kernel's order
+    (``pdhmm_cuda.pdhmm_kernel_order``) on the same inputs, bit for bit:
+    raises if any lane's f32 differs in any bit; returns 0."""
+    import torch
+
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    want = pdhmm_cuda.pdhmm_kernel_order(**t)
+    differ = int((k_raw.view(torch.int32) != want.view(torch.int32)).sum())
+    if differ:
+        raise AssertionError(f"PDHMM kernel vs kernel-order twin, {what}: {differ} lanes differ")
+    return differ
+
+
 def phase_pdhmm_kernel_vs_twin():
     import torch
 
@@ -899,14 +912,18 @@ def phase_pdhmm_kernel_vs_twin():
         k_out = pdhmm_cuda.pdhmm(**t)
         err, below = compare_raw(k_out, pdhmm_cuda.pdhmm_indexed_reference(**t),
                                  f"PDHMM {what}")
+        differ = pdhmm_lanes_not_bit_equal(k_out, t, what)
         ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm(**t), reps)
         plain_ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm_indexed_reference(**t), 1)
         cells = lane_cells(t["haplen"], t["rslen"])
         b = bound("pdhmm", nbytes(*t.values(), k_out), cells)
+        rows, pass_rows, passes = pdhmm_cuda.pdhmm_geometry(R)
         log(what.split()[0] + " pdhmm_kernel_vs_twin", shape=f"R{R}_H{H}_P{P}",
-            max_abs_log10_err=err, lanes_below_min_accepted=below, kernel_ms=ms,
+            rows_per_thread=rows, pass_rows=pass_rows, passes=passes, warps=P,
+            max_abs_log10_err=err, lanes_below_min_accepted=below,
+            lanes_not_bit_equal_kernel_order=differ, kernel_ms=ms,
             twin_ms=plain_ms, kernel_gcells_per_s=cells / ms / 1e6,
-            twin_gcells_per_s=cells / plain_ms / 1e6, **b)
+            twin_gcells_per_s=cells / plain_ms / 1e6, x_bound=ms / b["bound_ms"], **b)
         if timing is None:
             timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
         timing["max_abs_err"] = max(timing["max_abs_err"], err)
@@ -1099,8 +1116,9 @@ def phase_region_corpus():
     real_sw, real_pd, real_hmm = sw_cuda.sw_forward, pdhmm_cuda.pdhmm, pairhmm_cuda.pairhmm_scaled
     calls = {"sw_forward": [], "pdhmm": []}
     hmm_events = []  # CUDA events around the first run's PairHMM launches
-    sw_events = []  # and around its SW launches
-    timed_sw = timed(real_sw, sw_events)
+    sw_events = []  # around its SW launches
+    pd_events = []  # and around its PDHMM launches
+    timed_sw, timed_pd = timed(real_sw, sw_events), timed(real_pd, pd_events)
 
     def recording_sw(*args, **kw):
         out = timed_sw(*args, **kw)
@@ -1108,7 +1126,7 @@ def phase_region_corpus():
         return out
 
     def recording_pd(**t):
-        out = real_pd(**t)
+        out = timed_pd(**t)
         calls["pdhmm"].append((t, out))
         return out
 
@@ -1161,13 +1179,17 @@ def phase_region_corpus():
         if bad:
             raise AssertionError(f"SW kernel vs twin on the main path: {bad} cells differ")
     pd_err = 0.0
-    for t, k_raw in calls.pop("pdhmm"):
-        shape = (f"R{t['readq_u'].shape[1]}_H{t['hap_u'].shape[0]}_P{t['ridx'].shape[0]}"
+    for (t, k_raw), (start, end) in zip(calls.pop("pdhmm"), pd_events):
+        R = t["readq_u"].shape[1]
+        shape = (f"R{R}_H{t['hap_u'].shape[0]}_P{t['ridx'].shape[0]}"
                  f"_unique_reads{t['readq_u'].shape[2]}_unique_haps{t['hap_u'].shape[1]}")
         err, below = compare_raw(k_raw, pdhmm_cuda.pdhmm_indexed_reference(**t),
                                  f"PDHMM main path {shape}")
-        log("11 region_kernel_vs_twin", kernel="pdhmm", shape=shape,
-            max_abs_log10_err=err, lanes_below_min_accepted=below)
+        differ = pdhmm_lanes_not_bit_equal(k_raw, t, f"main path {shape}")
+        rows, _, passes = pdhmm_cuda.pdhmm_geometry(R)
+        log("11 region_kernel_vs_twin", kernel="pdhmm", shape=shape, rows_per_thread=rows,
+            passes=passes, kernel_ms=start.elapsed_time(end), max_abs_log10_err=err,
+            lanes_below_min_accepted=below, lanes_not_bit_equal_kernel_order=differ)
         pd_err = max(pd_err, err)
 
     lik, best, aligned, pd_lik = runs[0]["outputs"]
@@ -1184,6 +1206,7 @@ def phase_region_corpus():
         reads_per_s_median=nr / med["wall_s"],
         pairhmm_kernel_ms_first=sum(s.elapsed_time(e) for s, e in hmm_events),
         sw_kernel_ms_first=sum(s.elapsed_time(e) for s, e in sw_events),
+        pdhmm_kernel_ms_first=sum(s.elapsed_time(e) for s, e in pd_events),
         pairhmm_rescued_lanes=runs[0]["pairhmm_rescued"],
         pdhmm_lanes=nr * len(c["pdd"]), pdhmm_rescued_lanes=runs[0]["pdhmm_rescued"],
         sw_bt_bytes=runs[0]["sw_bt_bytes"], oracle_sample_reads=len(sample),
@@ -1597,7 +1620,11 @@ def main(argv) -> int:
              "sw_forward": "a warp per lane on an anti-diagonal wavefront, 2, 4 or 8 reference "
                            "rows a thread in passes of 32 strips, the pass boundary in (P, M) "
                            "planes, bt written lane-major in 8-column words; one kernel for "
-                           "both TPU kernels"}
+                           "both TPU kernels",
+             "pdhmm": "a warp per lane on an anti-diagonal wavefront, 2, 4 or 8 read rows a "
+                      "thread in passes of 32 strips, the jump state riding down the warp "
+                      "with the haplotype byte, the pass boundary in (P, H) planes only past "
+                      "one pass; one kernel for both TPU kernels"}
     # no single PyTorch call computes a PairHMM, PDHMM or SW forward
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{source}",

@@ -191,14 +191,15 @@ class PDHMM:
         inv = np.empty(n, np.int64)
         inv[np.asarray(order)] = np.arange(n)
         # memory-budgeted lane slicing (pdhmm/JavaData.h:83-97), taken in
-        # permuted order.  Per lane the kernel holds six f32 state planes
-        # along the haplotype axis (24 bytes a column), at most one unique
-        # read (5 planes) and haplotype (bases and PD bytes), and four i32
-        # indices; the JAX package's formula counts the TPU's state on the
-        # read axis instead
+        # permuted order.  Per lane the kernel takes at most one unique read
+        # (5 planes) and haplotype (bases and PD bytes), four i32 indices,
+        # and, when the read bucket needs more than one pass, its pass
+        # boundary (six f32 planes along the haplotype axis); the JAX
+        # package's formula counts the TPU's state on the read axis instead
         max_r = batch_mod.bucket_length(max(len(r) for r in reads))
         max_h = batch_mod.bucket_length(max(len(h) for h in haps))
-        bytes_per_lane = 24 * max_h + 5 * max_r + 2 * max_h + 16
+        bytes_per_lane = (pdhmm_cuda.boundary_bytes_per_lane(max_r, max_h)
+                          + 5 * max_r + 2 * max_h + 16)
         lm = batch_mod.LANE_MULTIPLE
         # whole lane-padding units, so a padded slice stays within the budget
         max_lanes = max(lm, self.args.max_memory_in_mb * 1024 * 1024 // bytes_per_lane // lm * lm)

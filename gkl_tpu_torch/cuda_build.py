@@ -92,7 +92,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, i32, i32,            # readq_u (5, R, nu_r) u8
         vp, vp, vp, vp, i32,     # ridx, hidx, haplen, rslen; P
         vp, vp,                  # q2e (255,), match-to-match (32640,) f32
-        vp,                      # state (6, H, P) f32 scratch
+        vp,                      # M, I, D, BM, BI, BD (6, P, H) f32: the boundary
+                                 # row between passes (unused in one pass)
+        i32,                     # rows per thread: 2, 4 or 8
         vp,                      # out (P,) f32
         vp,                      # cudaStream_t
     ]

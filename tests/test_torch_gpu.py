@@ -364,6 +364,105 @@ def test_pdhmm_kernel_matches_twin(cuda_device, R, H, P):
                                np.log10(want[~below].astype(np.float64)), rtol=0, atol=1e-5)
 
 
+def _force_pdhmm_rows(monkeypatch, rows):
+    """Launch the PDHMM kernel's instance of ``rows`` rows a thread at any R
+    (and allocate the pass boundary as that instance needs it)."""
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    monkeypatch.setattr(pdhmm_cuda, "pdhmm_geometry",
+                        lambda R: (rows, 32 * rows, -(-R // (32 * rows))))
+
+
+def _pdhmm_lanes(t, rslen=(), haplen=(), events=()):
+    """``_pdhmm_batch`` tensors with the first lanes' lengths set and PD
+    bytes ``(column, byte, lanes)`` written into every lane's haplotype."""
+    t = {k: v.clone() for k, v in t.items()}
+    t["rslen"][:len(rslen)] = torch.tensor(rslen, dtype=torch.int32)
+    t["haplen"][:len(haplen)] = torch.tensor(haplen, dtype=torch.int32)
+    for col, byte, lanes in events:
+        t["happd_u"][col, lanes] = byte
+    return t
+
+
+def _pdhmm_kernel_bit_equal(dev, t):
+    """One launch of the PDHMM kernel against the twin in its order on the
+    same card tensors: every lane's f32 result equal bit for bit.  Returns
+    the kernel's result."""
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    t = {k: v.to(dev) for k, v in t.items()}
+    launches = pdhmm_cuda.LAUNCHES
+    got = pdhmm_cuda.pdhmm(**t)
+    assert pdhmm_cuda.LAUNCHES == launches + 1
+    want = pdhmm_cuda.pdhmm_kernel_order(**t)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.cpu().numpy().view(np.int32))
+    return got
+
+
+# PD events at the edges of the 32-column fetch windows, adjacent deletion
+# pairs among them, and PD SNPs
+_PDHMM_EDGE_EVENTS = [(0, 2, slice(0, None, 3)), (2, 4, slice(0, None, 3)),
+                      (31, 2, slice(1, None, 3)), (32, 4, slice(1, None, 3)),
+                      (33, 2 | 4, slice(1, None, 3)), (34, 4, slice(1, None, 3)),
+                      (63, 1 | 16, slice(2, None, 3)), (64, 1 | 8, slice(2, None, 3)),
+                      (65, 2, slice(None, None, 2)), (95, 4, slice(None, None, 2))]
+
+
+@pytest.mark.parametrize("rows", [2, 4, 8])
+def test_pdhmm_kernel_instances_at_pass_edges(cuda_device, monkeypatch, rows):
+    """Every instance of the warp-wavefront PDHMM kernel equals the twin in
+    its order bit for bit, with rslen on either side of its first and second
+    pass edges (32 * rows +- 1, 64 * rows +- 1), over three passes, and
+    lanes of 1 row, with PD events at the fetch windows' edges."""
+    _force_pdhmm_rows(monkeypatch, rows)
+    e = 32 * rows
+    R = 3 * e
+    _pdhmm_kernel_bit_equal(cuda_device, _pdhmm_lanes(
+        _pdhmm_batch(R, 96, 24, seed=rows),
+        rslen=[e - 1, e, e + 1, 2 * e - 1, 2 * e, 2 * e + 1, R, R - 1, 1, 1],
+        haplen=[96, 96, 95, 64, 65, 33, 96, 32, 96, 1], events=_PDHMM_EDGE_EVENTS))
+
+
+def test_pdhmm_kernel_events_at_fetch_edges(cuda_device):
+    """The picked instance (8 rows a thread, 2 passes) with PD events at
+    the fetch windows' edges and at each lane's last column, and lanes with
+    haplotypes ending at those edges."""
+    t = _pdhmm_lanes(_pdhmm_batch(300, 130, 40, seed=71),
+                     rslen=[300, 257, 256, 255, 300, 300, 300],
+                     haplen=[130, 32, 33, 64, 65, 96, 97], events=_PDHMM_EDGE_EVENTS)
+    lanes = torch.arange(40)
+    t["happd_u"][t["haplen"].long() - 1, lanes] |= 4
+    _pdhmm_kernel_bit_equal(cuda_device, t)
+
+
+def test_pdhmm_kernel_one_row_and_one_column_lanes(cuda_device):
+    """Lanes of 1 read row, of 1 haplotype column and of both, beside lanes
+    past one pass."""
+    _pdhmm_kernel_bit_equal(cuda_device, _pdhmm_lanes(
+        _pdhmm_batch(320, 64, 12, seed=72), rslen=[1, 1, 1, 320, 257, 2],
+        haplen=[1, 64, 7, 1, 1, 1], events=[(0, 2 | 4, slice(None))]))
+
+
+def test_pdhmm_kernel_malformed_lanes_beside_good_ones(cuda_device):
+    """Lanes with an index or a length out of range get NaN, and the good
+    lanes of their blocks equal the twin in its order bit for bit."""
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(300, 64, 1056, seed=73).items()}
+    bad = torch.tensor([1, 6, 9, 1030, 1055], device=cuda_device)
+    t["rslen"][1], t["haplen"][6], t["ridx"][9], t["hidx"][1030], t["rslen"][1055] = \
+        0, 65, 1056, -1, 301
+    got = pdhmm_cuda.pdhmm(**t)
+    good = torch.ones(1056, dtype=torch.bool, device=cuda_device)
+    good[bad] = False
+    assert torch.isnan(got[bad]).all()
+    want = pdhmm_cuda.pdhmm_kernel_order(**{k: v[good] if k in (
+        "ridx", "hidx", "haplen", "rslen") else v for k, v in t.items()})
+    np.testing.assert_array_equal(got[good].cpu().numpy().view(np.int32),
+                                  want.cpu().numpy().view(np.int32))
+
+
 @pytest.mark.parametrize("use_double", [False, True])
 def test_pdhmm_golden_on_card(cuda_device, use_double):
     from gkl_tpu_torch import PDHMM, PDHMMNativeArguments

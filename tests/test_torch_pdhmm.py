@@ -237,28 +237,47 @@ def test_compute_likelihoods_matches_jax(max_memory_in_mb, monkeypatch):
     assert len(slices) == (1 if max_memory_in_mb else 3)
 
 
-def test_memory_slices_bound_the_kernel_state(monkeypatch):
-    """max_memory_in_mb bounds what the kernel allocates, its six f32 state
-    planes along the haplotype axis (24 bytes per column and lane): long
-    haplotypes with short reads get small slices, with the same results."""
+def _sliced_launches(monkeypatch, read_len, max_memory_in_mb=1, n_reads=60):
+    """60 reads of ``read_len`` bases against one 1,000-base haplotype under
+    a ``max_memory_in_mb`` budget: the (H, R, P) of each kernel call, and
+    the results checked against one unbudgeted call."""
     rng = np.random.default_rng(8)
     hap = BASES[rng.integers(0, 4, 1000)]
     hd = [tapi.PDHaplotypeData(hap, haplotype_pdbases=np.zeros(1000, np.uint8))]
     rd = []
-    for _ in range(60):
-        start = int(rng.integers(0, 970))
-        rd.append(ReadData(hap[start:start + 24].copy(), *(np.full(24, v, np.uint8)
-                                                          for v in (30, 45, 45, 10))))
+    for _ in range(n_reads):
+        start = int(rng.integers(0, 1000 - read_len))
+        rd.append(ReadData(hap[start:start + read_len].copy(),
+                           *(np.full(read_len, v, np.uint8) for v in (30, 45, 45, 10))))
     shapes = []
     real = pdhmm_cuda.pdhmm
     monkeypatch.setattr(pdhmm_cuda, "pdhmm", lambda **t: shapes.append(
-        (t["hap_u"].shape[0], t["ridx"].shape[0])) or real(**t))
-    got = tapi.PDHMM(tapi.PDHMMNativeArguments(max_memory_in_mb=1),
+        (t["hap_u"].shape[0], t["readq_u"].shape[1], t["ridx"].shape[0])) or real(**t))
+    got = tapi.PDHMM(tapi.PDHMMNativeArguments(max_memory_in_mb=max_memory_in_mb),
                      device="cpu").compute_likelihoods(rd, hd)
-    assert len(shapes) == 2
-    assert all(24 * H * P <= 1 << 20 for H, P in shapes), shapes
+    monkeypatch.setattr(pdhmm_cuda, "pdhmm", real)
     want = tapi.PDHMM(device="cpu").compute_likelihoods(rd, hd)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    return shapes
+
+
+def test_memory_slices_bound_the_kernel_state(monkeypatch):
+    """max_memory_in_mb bounds what the kernel allocates: reads that need
+    two passes of the kernel take its six f32 pass-boundary planes along
+    the haplotype axis (24 bytes per column and lane), so a long haplotype
+    gets small slices, with the same results."""
+    shapes = _sliced_launches(monkeypatch, read_len=300)
+    assert len(shapes) == 2
+    assert all(0 < pdhmm_cuda.boundary_bytes_per_lane(R, H) * P <= 1 << 20
+               for H, R, P in shapes), shapes
+
+
+def test_memory_slices_one_pass_reads_need_no_boundary(monkeypatch):
+    """Reads that one pass of the kernel holds need no boundary planes:
+    under the same budget the same long haplotype takes one slice."""
+    shapes = _sliced_launches(monkeypatch, read_len=24)
+    assert len(shapes) == 1
+    assert all(pdhmm_cuda.boundary_bytes_per_lane(R, H) == 0 for H, R, _ in shapes), shapes
 
 
 def test_rescue_is_every_lane_below_min_accepted(monkeypatch):
