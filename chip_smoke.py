@@ -72,7 +72,21 @@ before printing any result.  Phases, one line each (or a few):
     the rescued count against the lanes
     below MIN_ACCEPTED, and the first launch of the column kernel with
     reads of up to 128 rows, and the first with longer reads, against its
-    twin on the same tensors.
+    twin on the same tensors;
+14. the write side and the validation entry, host wall times logged beside
+    the host CPU's model, its cores, the codec threads and the card's name
+    and power limit: (a) ``validation.run`` at full size (10,240 reads, 8
+    haplotypes, 4 PD haplotypes, seed 0, sample stride 16) with the engines
+    on the card: the port writes the corpus BAM (level 5), streams it
+    through ``pipeline.region_bam`` and holds it to ``check_corpus``'s three
+    oracle legs; logs the stats, the BAM's bytes, ``build_corpus``'s and
+    ``check_corpus``'s seconds and the run's PairHMM, SW and PDHMM launches,
+    and holds the BAM's records to phase 11's reads base for base and
+    quality for quality; (b) ``pipeline.bam_recompress`` of that BAM and of
+    ``tests/data/HiSeq.1mb.1RG.2k_lines.bam`` at levels 1, 6 and 9: each
+    output, re-read, gives the source's names, sequences, qualities and raw
+    record bytes and ends in the BGZF EOF block; logs the compressed bytes
+    and the payload MB/s.
 
 ``python3 chip_smoke.py --profile`` runs phases 0-1 and then the main path
 under ``torch.profiler`` instead: stage times, the card's busy time and
@@ -201,48 +215,18 @@ def gatk_like_batch(R, H, P, seed=0):
 
 
 def active_region(n_reads=10240, n_haplotypes=8, n_pd_haplotypes=4, seed=0):
-    """The synthetic active region of ``gkl_tpu/validation.py::build_corpus``
-    (same generator, same draws): haplotypes 160-420 from one ancestor,
-    reads 48-250 with 1-5% mutations and quals 18-45, every 64th read a
-    deep lane (250 bases, 25% mutations, quals 4-8), and the first
-    ``n_pd_haplotypes`` haplotypes again as PD haplotypes with 0-2 deletion
-    events each.  Returns (haps, [(seq, qual)], deep mask, [(seq, pd)])."""
-    rng = np.random.default_rng(seed)
-    ancestor = BASES[rng.integers(0, 4, 420)]
-    haps = []
-    for i in range(n_haplotypes):
-        L = int(rng.integers(160, 421)) if i else 420
-        seq = ancestor[:L].copy()
-        mut = rng.random(L) < 0.01
-        seq[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
-        haps.append(seq)
-    pd_haps = []
-    for i in range(n_pd_haplotypes):
-        pd = np.zeros(len(haps[i]), np.uint8)
-        for _ in range(int(rng.integers(0, 3))):
-            j = int(rng.integers(4, len(haps[i]) - 12))
-            span = int(rng.integers(2, 7))
-            pd[j] = 2  # DEL_START
-            pd[j + span] = 4  # DEL_END
-        pd_haps.append((haps[i], pd))
-    reads, deep = [], np.zeros(n_reads, bool)
-    for r in range(n_reads):
-        hap = haps[int(rng.integers(0, n_haplotypes))]
-        if r % 64 == 0:
-            deep[r] = True
-            L, mut_rate, qlo, qhi = 250, 0.25, 4, 9
-        else:
-            L = int(rng.integers(48, 251))
-            mut_rate, qlo, qhi = float(rng.uniform(0.01, 0.05)), 18, 46
-        start = int(rng.integers(0, max(1, len(hap) - min(L, len(hap)) + 1)))
-        seq = hap[start:start + L]
-        if len(seq) < L:
-            seq = np.concatenate([seq, BASES[rng.integers(0, 4, L - len(seq))]])
-        seq = seq.copy()
-        mut = rng.random(L) < mut_rate
-        seq[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
-        reads.append((seq, rng.integers(qlo, qhi, L).astype(np.uint8)))
-    return haps, reads, deep, pd_haps
+    """The synthetic active region of ``validation.build_corpus`` in memory,
+    from its own draws (``validation.draw_corpus``): haplotypes 160-420 from
+    one ancestor, reads 48-250 with 1-5% mutations and quals 18-45, every
+    64th read a deep lane (250 bases, 25% mutations, quals 4-8), and the
+    first ``n_pd_haplotypes`` haplotypes again as PD haplotypes with 0-2
+    deletion events each.  Returns (haps, [(seq, qual)], deep mask,
+    [(seq, pd)])."""
+    from gkl_tpu_torch import validation
+
+    haps, pd_pairs, records, _, deep = validation.draw_corpus(
+        n_reads, n_haplotypes, n_pd_haplotypes, seed)
+    return haps, [(r.seq, r.qual) for r in records], deep, pd_pairs
 
 
 def to_read_data(reads):
@@ -370,16 +354,38 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def card_and_power_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
+
+
+def host_fields() -> dict:
+    """The host CPU's model, its cores and the host codec's threads, and the
+    card's name and power limit: logged beside every host time."""
+    from gkl_tpu_torch import utils
+
+    info = {}
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            key, _, value = line.partition(":")
+            if not key.strip():
+                break  # the first processor's block ends
+            info.setdefault(key.strip(), value.strip())
+    cpu = (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family "
+           f"{info.get('cpu family', '?')} model {info.get('model', '?')})")
+    return dict(host_cpu=repr(cpu), host_cores=os.cpu_count(),
+                host_threads=utils.default_host_threads(), card=repr(card_and_power_limit()))
+
+
 def phase_device():
     import torch
 
     from gkl_tpu_torch import utils
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
-          flush=True)
+    print(card_and_power_limit(), flush=True)
     card = utils.cuda_device(0)
     if card is None:
         raise SystemExit("no CUDA device: torch.cuda.is_available() is False")
@@ -1074,7 +1080,7 @@ def region_corpus():
     from gkl_tpu_torch import HaplotypeData, PDHaplotypeData
 
     haps, reads, deep, pd_pairs = active_region()
-    return dict(haps=haps, deep=deep, pd_pairs=pd_pairs, rd=to_read_data(reads),
+    return dict(haps=haps, deep=deep, pd_pairs=pd_pairs, reads=reads, rd=to_read_data(reads),
                 hd=[HaplotypeData(h) for h in haps],
                 pdd=[PDHaplotypeData(h, haplotype_pdbases=p) for h, p in pd_pairs])
 
@@ -1101,16 +1107,16 @@ def run_region(c, hmm, sw, pdhmm):
     return (lik, best, aligned, pd_lik), (t1 - t0, t2 - t1, t3 - t2)
 
 
-def phase_region_corpus():
-    """The main path: region_stream's three calls on the full-size corpus,
-    three times; launches and stage times are read around each run.  The
-    first run's outputs are checked against the oracles, and each SW and
-    PDHMM launch it made is held against the twin on the same tensors."""
+def phase_region_corpus(c):
+    """The main path: region_stream's three calls on the full-size corpus
+    ``c`` (``region_corpus()``), three times; launches and stage times are
+    read around each run.  The first run's outputs are checked against the
+    oracles, and each SW and PDHMM launch it made is held against the twin
+    on the same tensors."""
     from gkl_tpu_torch import PDHMM, PairHMM, SmithWaterman, profiling
     from gkl_tpu_torch.ops import pairhmm_cuda, pdhmm_cuda, sw_cuda
     from gkl_tpu_torch.ops import sw as sw_ops
 
-    c = region_corpus()
     nr = len(c["rd"])
     engines = (PairHMM(), SmithWaterman(), PDHMM())
     real_sw, real_pd, real_hmm = sw_cuda.sw_forward, pdhmm_cuda.pdhmm, pairhmm_cuda.pairhmm_scaled
@@ -1542,6 +1548,92 @@ def phase_long_region():
     return launches["pairhmm_cols"], twin_err
 
 
+def phase_validation(c):
+    """Phase 14: (a) ``validation.run`` at full size on the card: the port
+    writes the corpus BAM (level 5), streams it through
+    ``pipeline.region_bam`` with the three engines on CUDA and holds it to
+    the three oracle legs; the BAM's records must be phase 11's reads
+    (corpus ``c``).  (b) ``pipeline.bam_recompress`` of that BAM and of the
+    test BAM at levels 1, 6 and 9; each output re-read must give the
+    source's names, sequences, qualities and raw record bytes, and end in
+    the BGZF EOF block.  Times are host wall seconds."""
+    import tempfile
+
+    from gkl_tpu_torch import bam, pipeline, validation
+    from gkl_tpu_torch.compression import bgzf
+    from gkl_tpu_torch.ops import pairhmm_cuda, pdhmm_cuda, sw_cuda
+
+    host = host_fields()
+    n_reads = len(c["reads"])
+    with tempfile.TemporaryDirectory(prefix="gkl_tpu_torch_smoke_") as tmp:
+        corpus_bam = os.path.join(tmp, "corpus.bam")
+        real = {name: getattr(validation, name) for name in ("build_corpus", "check_corpus")}
+        seconds = {}
+
+        def wall(name):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                out = real[name](*args, **kw)
+                seconds[name] = time.perf_counter() - t0
+                return out
+            return call
+
+        default_rescue_policy()
+        pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+        validation.build_corpus, validation.check_corpus = (wall("build_corpus"),
+                                                            wall("check_corpus"))
+        try:
+            stats = validation.run(corpus_bam, n_reads=n_reads, sample_stride=16, seed=0,
+                                   device="cuda")
+        finally:
+            validation.build_corpus = real["build_corpus"]
+            validation.check_corpus = real["check_corpus"]
+        launches = {"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
+                    "pdhmm": pdhmm_cuda.LAUNCHES}
+        log("14a validation_run", **stats, bam_bytes=os.path.getsize(corpus_bam),
+            build_corpus_s=seconds["build_corpus"], check_corpus_s=seconds["check_corpus"],
+            **{f"launches_{k}": v for k, v in launches.items()}, **host)
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel did not run under validation.run: {launches}")
+        # every 64th read is deep, so the sample is every 16th read
+        n_sample = len(range(0, n_reads, 16))
+        if (stats["n_reads"], stats["n_deep_lanes"], stats["n_sw_checked"]) != (
+                n_reads, len(range(0, n_reads, 64)), min(n_sample, max(64, n_sample // 4))):
+            raise AssertionError(f"validation.run checked less than the corpus: {stats}")
+        _, records = bam.read_bam(corpus_bam)
+        for i, (rec, (seq, qual)) in enumerate(zip(records, c["reads"], strict=True)):
+            if not (np.array_equal(rec.seq, seq) and np.array_equal(rec.qual, qual)):
+                raise AssertionError(f"corpus BAM record {i} differs from phase 11's read")
+
+        for src in (corpus_bam, os.path.join(DATA, "HiSeq.1mb.1RG.2k_lines.bam")):
+            with open(src, "rb") as fh:
+                src_bytes = fh.read()
+            payload_bytes = len(bgzf.decompress(src_bytes))
+            _, want = bam.read_bam(src, keep_raw=True)
+            for level in (1, 6, 9):
+                dst = os.path.join(tmp, f"recompressed_{level}.bam")
+                t0 = time.perf_counter()
+                n = pipeline.bam_recompress(src, dst, level=level)
+                write_s = time.perf_counter() - t0
+                with open(dst, "rb") as fh:
+                    out_bytes = fh.read()
+                _, got = bam.read_bam(dst, keep_raw=True)
+                if not out_bytes.endswith(bgzf.EOF_BLOCK):
+                    raise AssertionError(f"recompressed {src} at level {level}: no EOF block")
+                if n != len(want) or len(got) != len(want):
+                    raise AssertionError(f"recompressed {src} at level {level}: {len(got)} of "
+                                         f"{len(want)} records ({n} written)")
+                for a, b in zip(want, got):
+                    if (a.name, a.raw) != (b.name, b.raw) or not (
+                            np.array_equal(a.seq, b.seq) and np.array_equal(a.qual, b.qual)):
+                        raise AssertionError(f"recompressed {src} at level {level}: record "
+                                             f"{a.name} differs")
+                log("14b recompress", source=os.path.basename(src), level=level, records=n,
+                    source_bytes=len(src_bytes), payload_bytes=payload_bytes,
+                    compressed_bytes=len(out_bytes), wall_s=write_s,
+                    payload_mb_per_s=payload_bytes / write_s / 1e6, **host)
+
+
 def phase_profile():
     """``--profile``: the main path once to warm up, then once under
     ``torch.profiler``: each stage's wall time, the card's busy time (the
@@ -1598,11 +1690,13 @@ def main(argv) -> int:
     pd_timing = phase_pdhmm_kernel_vs_twin()
     phase_pdhmm_golden()
     phase_region()
-    launches, path_err = phase_region_corpus()
+    corpus = region_corpus()
+    launches, path_err = phase_region_corpus(corpus)
     pd_timing["max_abs_err"] = max(pd_timing["max_abs_err"], path_err)
     rows_timing, cols_timing, launches["pairhmm_rows"] = phase_long_kernels()
     launches["pairhmm_cols"], path_err = phase_long_region()
     cols_timing["max_abs_err"] = max(cols_timing["max_abs_err"], path_err)
+    phase_validation(corpus)
     kernels = [
         ("pairhmm_scaled", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
         ("pairhmm_rows", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:268", rows_timing),

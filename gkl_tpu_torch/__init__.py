@@ -5,8 +5,9 @@ names of ``gkl_tpu``: the PairHMM forward likelihood, Smith-Waterman
 realignment and the PDHMM forward likelihood, each backed by a hand-written
 CUDA kernel (``csrc/*.cu``) with a plain PyTorch twin for CPU tensors; the
 host f64 rescues and the CIGAR walk on the port's byte-identical copy of
-the JAX package's native C++ (``native/``); and the BAM streaming and
-region pipelines.  Module
+the JAX package's native C++ (``native/``); the DEFLATE codec and BAM
+reading and writing (``compression/``, ``bam``); the BAM streaming and
+region pipelines; and the validation corpus (``validation``).  Module
 names mirror ``gkl_tpu``'s.  This package imports neither JAX nor
 ``gkl_tpu``.
 """

@@ -1,11 +1,18 @@
-"""BAM reader (SAM spec §4.2) — counterpart of the read side of ``gkl_tpu/bam.py``.
+"""BAM reader and writer (SAM spec §4.2) — counterpart of ``gkl_tpu/bam.py``.
 
-BGZF blocks are inflated by the parallel native codec (``compression.py``)
+BGZF blocks are inflated by the parallel native codec (``compression/``)
 and alignment records are decoded by the native record scanner
 (``gkl_tpu_torch/native/bam_scan.cc``, a byte-identical copy of
 ``gkl_tpu/native/bam_scan.cc``) into numpy arrays ready
 for the batch planner.  Only the fields the kernels need are decoded: name,
-flag, position, cigar, sequence and qualities.
+flag, position, cigar, sequence and qualities.  Readers invoked with
+``keep_raw=True`` also keep each record's original bytes, so rewrite paths
+(``pipeline.bam_recompress``) carry tags, mate fields and bin verbatim.
+
+The writer (:func:`write_bam`, :func:`write_bam_streaming`) encodes records
+and deflates maximal BGZF blocks on the parallel codec: the htsjdk
+SAMFileWriter + IntelDeflater path (DeflaterIntegrationTest.java:27-99)
+without the JVM.  Its files are byte for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ import struct
 
 import numpy as np
 
-from . import compression, native_lib
+from . import native_lib
+from .compression import bgzf
 
 CIGAR_OPS = "MIDNSHP=X"
 
@@ -42,6 +50,17 @@ class BamRecord:
     cigar: list[tuple[int, str]]  # (length, op)
     seq: np.ndarray  # uint8 ASCII bases
     qual: np.ndarray  # uint8 phred (no +33 offset)
+    # the record's original bytes (4-byte size prefix + block), kept only
+    # when the reader is asked to (keep_raw=True): tags, mate fields and
+    # bin, which the decoded fields above do not carry
+    raw: bytes | None = None
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & FLAG_UNMAPPED)
+
+    def cigar_string(self) -> str:
+        return "".join(f"{n}{op}" for n, op in self.cigar) or "*"
 
 
 def parse_header(payload) -> tuple[BamHeader, int]:
@@ -115,10 +134,12 @@ def _scanner():
     return lib
 
 
-def parse_records(payload, offset: int, limit: int | None = None) -> list[BamRecord]:
+def parse_records(payload, offset: int, limit: int | None = None,
+                  keep_raw: bool = False) -> list[BamRecord]:
     """Decode the alignment records of a decompressed BAM payload with the
     native two-pass scanner: fixed fields, unpacked sequences and quals in
-    flat buffers.  Each record's seq/qual are views into shared buffers."""
+    flat buffers.  Each record's seq/qual are views into shared buffers;
+    with ``keep_raw`` each record also keeps its original bytes."""
     if limit is not None and limit <= 0:
         return []
     lib = _scanner()
@@ -161,21 +182,29 @@ def parse_records(payload, offset: int, limit: int | None = None) -> list[BamRec
             (c,) = struct.unpack_from("<I", payload, co + 4 * ci)
             cigar.append((c >> 4, CIGAR_OPS[c & 0xF]))
         name = bytes(name_buf[name_off[k] : name_off[k] + name_len[k]]).decode("ascii")
+        raw = None
+        if keep_raw:
+            # the record spans [prefix, prefix + 4 + block_size); its cigar
+            # sits at prefix + 4 + 32 + l_read_name, and l_read_name counts
+            # the NUL that the scanner's name length leaves out
+            prefix = int(co) - 32 - (int(name_len[k]) + 1) - 4
+            (bs,) = struct.unpack_from("<i", payload, prefix)
+            raw = bytes(payload[prefix : prefix + 4 + bs])
         records.append(BamRecord(
             name, int(flag[k]), int(ref_id[k]), int(pos[k]), int(mapq[k]),
-            cigar, seq_buf[s0 : s0 + ls], qual_buf[s0 : s0 + ls],
+            cigar, seq_buf[s0 : s0 + ls], qual_buf[s0 : s0 + ls], raw,
         ))
     return records
 
 
-def read_bam(path: str, limit: int | None = None,
-             threads: int | None = None) -> tuple[BamHeader, list[BamRecord]]:
+def read_bam(path: str, limit: int | None = None, threads: int | None = None,
+             keep_raw: bool = False) -> tuple[BamHeader, list[BamRecord]]:
     """Read a whole BAM file: (header, records)."""
     with open(path, "rb") as fh:
         data = fh.read()
-    payload = compression.decompress(data, threads=threads)
+    payload = bgzf.decompress(data, threads=threads)
     header, off = parse_header(payload)
-    return header, parse_records(payload, off, limit=limit)
+    return header, parse_records(payload, off, limit=limit, keep_raw=keep_raw)
 
 
 def _complete_records_end(buf, start: int) -> int:
@@ -193,12 +222,13 @@ def _complete_records_end(buf, start: int) -> int:
 
 
 def read_bam_streaming(path: str, limit: int | None = None,
-                       threads: int | None = None, read_size: int = 4 << 20):
+                       threads: int | None = None, read_size: int = 4 << 20,
+                       keep_raw: bool = False):
     """Streaming form of :func:`read_bam`: returns (header, record iterator)
     with host memory bounded by ``read_size`` of compressed input plus one
     decode window; records may span BGZF blocks, so a rolling buffer
     carries partial tails."""
-    gen = compression.iter_decompressed(path, threads=threads, read_size=read_size)
+    gen = bgzf.iter_decompressed(path, threads=threads, read_size=read_size)
     buf = bytearray()
     header = None
     off = 0
@@ -220,7 +250,8 @@ def read_bam_streaming(path: str, limit: int | None = None,
             end = _complete_records_end(buf, off)
             if end > off:
                 want = None if limit is None else limit - count
-                recs = parse_records(bytes(memoryview(buf)[off:end]), 0, limit=want)
+                recs = parse_records(bytes(memoryview(buf)[off:end]), 0, limit=want,
+                                     keep_raw=keep_raw)
                 count += len(recs)
                 del buf[:end]
                 off = 0
@@ -238,3 +269,92 @@ def read_bam_streaming(path: str, limit: int | None = None,
             raise ValueError("truncated BAM record at end of stream")
 
     return header, records()
+
+
+# ---------------------------------------------------------------------------
+# Writing
+# ---------------------------------------------------------------------------
+
+_SEQ_CODE = {b: i for i, b in enumerate(b"=ACMGRSVTWYHKDBN")}
+_CIGAR_CODE = {op: i for i, op in enumerate(CIGAR_OPS)}
+
+
+def encode_record(rec: BamRecord) -> bytes:
+    """Serialize one alignment record to its BAM byte layout.
+
+    A record that carries its original bytes (a ``keep_raw=True`` reader's)
+    is emitted verbatim; one built in Python encodes from the decoded
+    fields, with no tags, bin 0 and the mate fields unset."""
+    if rec.raw is not None:
+        return rec.raw
+    name = rec.name.encode("ascii") + b"\x00"
+    l_seq = len(rec.seq)
+    packed = bytearray((l_seq + 1) // 2)
+    for i, base in enumerate(bytes(rec.seq)):
+        code = _SEQ_CODE.get(base, 15)
+        if i % 2 == 0:
+            packed[i // 2] = code << 4
+        else:
+            packed[i // 2] |= code
+    body = struct.pack(
+        "<iiBBHHHiiii",
+        rec.ref_id, rec.pos, len(name), rec.mapq,
+        0,  # bin
+        len(rec.cigar), rec.flag, l_seq,
+        -1, -1, 0,  # next_refID, next_pos, tlen
+    )
+    cigar = b"".join(struct.pack("<I", (n << 4) | _CIGAR_CODE[op]) for n, op in rec.cigar)
+    qual = bytes(rec.qual) if len(rec.qual) == l_seq else b"\xff" * l_seq
+    block = body + name + cigar + bytes(packed) + qual
+    return struct.pack("<i", len(block)) + block
+
+
+def encode_header(header: BamHeader) -> bytes:
+    """The BAM header's bytes: magic, text, reference dictionary."""
+    text = header.text.encode("utf-8")
+    out = bytearray(b"BAM\x01")
+    out += struct.pack("<i", len(text))
+    out += text
+    out += struct.pack("<i", len(header.ref_names))
+    for name, length in zip(header.ref_names, header.ref_lengths):
+        nb = name.encode("ascii") + b"\x00"
+        out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
+    return bytes(out)
+
+
+def write_bam(path: str, header: BamHeader, records, level: int = 6,
+              threads: int | None = None) -> None:
+    """Write records to a BAM file, BGZF-compressed on the parallel codec."""
+    payload = encode_header(header) + b"".join(encode_record(r) for r in records)
+    with open(path, "wb") as fh:
+        fh.write(bgzf.compress(payload, level=level, threads=threads))
+
+
+def write_bam_streaming(path: str, header: BamHeader, records, level: int = 6,
+                        threads: int | None = None, window_blocks: int = 64) -> int:
+    """Streaming BAM writer in bounded memory: encoded records accumulate
+    until ``window_blocks`` full BGZF blocks are ready, then that window
+    deflates across the native thread pool and goes to disk.  Only maximal
+    blocks are written until the records end; then the tail block and
+    :data:`bgzf.EOF_BLOCK`.  Returns the number of records written."""
+    window_bytes = window_blocks * bgzf.MAX_BLOCK_DATA
+    n_written = 0
+    with open(path, "wb") as fh:
+        buf = bytearray(encode_header(header))
+
+        def flush(final: bool) -> None:
+            cut = len(buf) if final else (len(buf) // bgzf.MAX_BLOCK_DATA) * bgzf.MAX_BLOCK_DATA
+            if cut > 0:
+                fh.write(bgzf.compress(bytes(buf[:cut]), level=level, threads=threads,
+                                       append_eof=False))
+                del buf[:cut]
+            if final:
+                fh.write(bgzf.EOF_BLOCK)
+
+        for rec in records:
+            buf += encode_record(rec)
+            n_written += 1
+            if len(buf) >= window_bytes:
+                flush(False)
+        flush(True)
+    return n_written

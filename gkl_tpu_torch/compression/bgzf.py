@@ -1,38 +1,28 @@
-"""BGZF block split and inflate — counterpart of the read side of
-``gkl_tpu/compression/`` (``bgzf.py`` and the batch inflater).
+"""BGZF (blocked gzip) reader and writer — counterpart of
+``gkl_tpu/compression/bgzf.py``.
 
 BAM files are streams of gzip members carrying a ``BC`` extra subfield with
 the compressed block size (SAM spec §4.1).  Members are split here and
-inflated in parallel by the host native codec (``gkl_tpu_torch/native/codec.cc``,
-a byte-identical copy of ``gkl_tpu/native/codec.cc``), which also computes
-each block's CRC32 while the payload
-is cache-hot.  Every block's CRC32 and size are verified.
+inflated in parallel by the block codec of this package, which also
+computes each block's CRC32 while the payload is cache-hot; every block's
+CRC32 and size are verified.  :func:`compress` cuts a payload into blocks of
+:data:`MAX_BLOCK_DATA` bytes, deflates them in parallel and frames each as
+htsjdk's BlockCompressedOutputStream does.
 """
 
 from __future__ import annotations
 
-import ctypes
 import struct
+import zlib
 
 import numpy as np
 
-from . import native_lib, utils
+from . import deflate_blocks, inflate_blocks_packed, release_blocks_buffer
 
+MAX_BLOCK_DATA = 65280  # uncompressed payload cap per BGZF block (htsjdk)
+# the canonical 28-byte BGZF EOF marker block
+EOF_BLOCK = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000")
 _MAX_BLOCK = 1 << 16
-
-
-def _codec():
-    lib = native_lib.load("gkl_codec")
-    if not hasattr(lib, "_inflate_ready"):
-        lib.gkl_inflate_batch2.restype = None
-        lib.gkl_inflate_batch2.argtypes = [
-            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint32),
-            ctypes.c_int, ctypes.c_int,
-        ]
-        lib._inflate_ready = True
-    return lib
 
 
 def split_blocks_partial(data) -> tuple[list[bytes], int]:
@@ -80,7 +70,6 @@ def inflate_members(members: list[bytes], threads: int | None = None) -> bytearr
     against its gzip trailer, and join the payloads."""
     if not members:
         return bytearray()
-    lib = _codec()
     n = len(members)
     cdatas = []
     meta = np.empty((n, 2), np.int64)  # crc, isize
@@ -88,30 +77,28 @@ def inflate_members(members: list[bytes], threads: int | None = None) -> bytearr
         xlen = struct.unpack_from("<H", b, 10)[0]
         cdatas.append(b[12 + xlen : -8])
         meta[i] = struct.unpack_from("<II", b, len(b) - 8)
-    ins = (ctypes.c_char_p * n)(*cdatas)
-    lens = np.array([len(c) for c in cdatas], np.int32)
-    out = np.empty(n * _MAX_BLOCK, np.uint8)
-    out_lens = np.empty(n, np.int32)
-    out_crcs = np.empty(n, np.uint32)
-    lib.gkl_inflate_batch2(
-        ctypes.cast(ins, ctypes.POINTER(ctypes.c_char_p)),
-        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(_MAX_BLOCK),
-        out_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        out_crcs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        1, threads or utils.default_host_threads())
+    res = inflate_blocks_packed(cdatas, threads=threads, max_block=_MAX_BLOCK, crcs=True)
+    if res is None:
+        raise ValueError("BGZF block corrupt")
+    out, out_lens, stride, out_crcs = res
     if (not np.array_equal(out_lens.astype(np.int64), meta[:, 1])
             or not np.array_equal(out_crcs.astype(np.int64), meta[:, 0])):
+        release_blocks_buffer(out)
         raise ValueError("BGZF block corrupt")
     buf = bytearray(int(out_lens.sum()))
     mv = memoryview(buf)
     o = 0
     for i in range(n):
         ln = int(out_lens[i])
-        mv[o : o + ln] = out[i * _MAX_BLOCK : i * _MAX_BLOCK + ln]
+        mv[o : o + ln] = out[i * stride : i * stride + ln]
         o += ln
+    release_blocks_buffer(out)
     return buf
+
+
+def decompress_block(block: bytes) -> bytes:
+    """Decompress one BGZF block, verified against its trailer."""
+    return bytes(inflate_members([block]))
 
 
 def decompress(data: bytes, threads: int | None = None) -> bytearray:
@@ -137,3 +124,34 @@ def iter_decompressed(path: str, threads: int | None = None,
                 yield inflate_members(blocks, threads)
         if rem:
             raise ValueError("truncated BGZF stream (incomplete trailing member)")
+
+
+def _frame(cdata: bytes, raw: bytes) -> bytes:
+    """One gzip member with the BC subfield around a raw DEFLATE block."""
+    bsize = len(cdata) + 12 + 6 + 8
+    if bsize > 65536:
+        raise ValueError("BGZF block too large")
+    header = (
+        b"\x1f\x8b\x08\x04"  # magic, deflate, FEXTRA
+        + b"\x00\x00\x00\x00"  # mtime
+        + b"\x00\xff"  # xfl, os=unknown
+        + struct.pack("<H", 6)  # xlen
+        + b"BC"
+        + struct.pack("<H", 2)
+        + struct.pack("<H", bsize - 1)
+    )
+    footer = struct.pack("<II", zlib.crc32(raw) & 0xFFFFFFFF, len(raw))
+    return header + cdata + footer
+
+
+def compress(data: bytes, level: int = 6, threads: int | None = None,
+             append_eof: bool = True) -> bytes:
+    """Compress bytes into a BGZF stream (parallel across blocks)."""
+    chunks = [data[i : i + MAX_BLOCK_DATA] for i in range(0, len(data), MAX_BLOCK_DATA)] or [b""]
+    cdatas = deflate_blocks(chunks, level=level, nowrap=True, threads=threads)
+    out = bytearray()
+    for raw, cdata in zip(chunks, cdatas):
+        out += _frame(cdata, raw)
+    if append_eof:
+        out += EOF_BLOCK
+    return bytes(out)

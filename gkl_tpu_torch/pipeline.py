@@ -1,6 +1,6 @@
 """Streaming pipelines: BAM blocks -> host codec -> batch planner -> GPU.
 
-Counterpart of ``gkl_tpu/pipeline.py`` (all but ``bam_recompress``):
+Counterpart of ``gkl_tpu/pipeline.py``:
 
 1. a producer thread inflates BGZF blocks on the native codec and decodes
    and filters records (``bam.read_bam_streaming``) into chunks on a
@@ -15,7 +15,8 @@ Counterpart of ``gkl_tpu/pipeline.py`` (all but ``bam_recompress``):
 flow on that stream: PairHMM, then Smith-Waterman realignment of each read
 against its best haplotype, then optionally PDHMM against partially
 determined haplotypes; :func:`sw_align_stream` realigns a BAM's reads
-against one reference window.
+against one reference window; :func:`bam_recompress` streams a BAM through
+decode, re-encode and the parallel BGZF deflate.
 
 Stage times land in ``profiling.METRICS`` (pipeline_wait,
 pipeline_dispatch, pipeline_resolve, pipeline_sw, pipeline_pdhmm) when
@@ -364,3 +365,20 @@ def region_bam(bam_path: str, haplotypes: Sequence[HaplotypeData],
         offsets=(np.concatenate([c.offsets for c in chunks])
                  if chunks else np.zeros((0,), np.int64)),
         pd_likelihoods=np.concatenate(pd) if pd else None)
+
+
+def bam_recompress(src_path: str, dst_path: str, *, level: int = 6,
+                   threads: int | None = None, limit: int | None = None,
+                   window_blocks: int = 64) -> int:
+    """Stream a BAM through decode -> re-encode -> parallel BGZF deflate in
+    bounded memory: the read side inflates incrementally
+    (``read_bam_streaming``) while the write side batches the records into
+    maximal BGZF blocks for the native deflate pool
+    (``write_bam_streaming``), the DeflaterIntegrationTest loop
+    (DeflaterIntegrationTest.java:27-99) as a pipeline stage.  Records are
+    read with ``keep_raw=True`` and re-emitted byte for byte, so tags, mate
+    fields and bin survive.  Returns the record count."""
+    header, records = bam_mod.read_bam_streaming(src_path, limit=limit, threads=threads,
+                                                 keep_raw=True)
+    return bam_mod.write_bam_streaming(dst_path, header, records, level=level,
+                                       threads=threads, window_blocks=window_blocks)

@@ -37,6 +37,15 @@ def cuda_device(index: int = 0) -> CudaDevice | None:
     )
 
 
+def available_parallelism(device: str | torch.device = "cuda") -> int:
+    """Device-level parallelism (the OpenMP thread-count analogue): the
+    local devices of ``device``'s type, ``torch.cuda.device_count()`` for
+    CUDA and 1 for the CPU."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
 def default_host_threads() -> int:
     """Worker count for the host-side native thread pools (codec, f64
     oracle).  ``GKL_TPU_THREADS`` overrides; otherwise every core, capped

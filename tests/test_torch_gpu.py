@@ -756,3 +756,42 @@ def test_row_kernel_malformed_lanes_beside_good_ones(cuda_device, scaled):
     else:
         assert torch.isnan(got[nan]).all() and torch.equal(got[~nan], good[~nan])
     _assert_bit_equal_to_kernel_order(good, t, scaled)
+
+
+def test_validation_run_on_card(cuda_device):
+    """validation.run with the three engines on the card: the corpus BAM
+    the port writes, streamed through region_bam, passes the three oracle
+    legs, and every kernel of the path launches."""
+    from gkl_tpu_torch import validation
+    from gkl_tpu_torch.ops import pdhmm_cuda, sw_cuda
+
+    before = pairhmm_cuda.LAUNCHES, sw_cuda.LAUNCHES, pdhmm_cuda.LAUNCHES
+    stats = validation.run(n_reads=1024, sample_stride=16, seed=0, device=cuda_device)
+    after = pairhmm_cuda.LAUNCHES, sw_cuda.LAUNCHES, pdhmm_cuda.LAUNCHES
+    assert all(a > b for a, b in zip(after, before))
+    assert (stats["n_reads"], stats["n_deep_lanes"]) == (1024, 16)
+    assert stats["pairhmm_max_err"] < 1e-4 and stats["pdhmm_max_err"] < 1e-4
+    assert stats["n_sw_checked"] == 64
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_recompress_round_trip(cuda_device, tmp_path, level):
+    """pipeline.bam_recompress of the test BAM keeps every record's name,
+    bases, qualities and raw bytes, and ends in the BGZF EOF block (on the
+    GPU machine, where the JAX package that the CPU tests compare with is
+    absent)."""
+    import os
+
+    from gkl_tpu_torch import bam, pipeline
+    from gkl_tpu_torch.compression import bgzf
+
+    src = os.path.join(chip_smoke.DATA, "HiSeq.1mb.1RG.2k_lines.bam")
+    _, want = bam.read_bam(src, keep_raw=True)
+    dst = str(tmp_path / "out.bam")
+    assert pipeline.bam_recompress(src, dst, level=level, window_blocks=2) == len(want)
+    assert (tmp_path / "out.bam").read_bytes().endswith(bgzf.EOF_BLOCK)
+    _, got = bam.read_bam(dst, keep_raw=True)
+    assert [(r.name, r.raw) for r in got] == [(r.name, r.raw) for r in want]
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a.seq, b.seq)
+        np.testing.assert_array_equal(a.qual, b.qual)

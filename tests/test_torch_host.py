@@ -16,7 +16,7 @@ from gkl_tpu import batch as jbatch
 from gkl_tpu import context as jctx
 from gkl_tpu_torch import bam as tbam
 from gkl_tpu_torch import batch as tbatch
-from gkl_tpu_torch import compression as tcomp
+from gkl_tpu_torch.compression import bgzf as tbgzf
 from gkl_tpu_torch import context as tctx
 from gkl_tpu_torch.ops import pairhmm_ref as tref
 
@@ -106,8 +106,8 @@ def test_pack_pairs_indexed_equal(const_quals):
 def test_bgzf_decompress_matches_gzip():
     with open(BAM, "rb") as fh:
         data = fh.read()
-    assert bytes(tcomp.decompress(data, threads=2)) == gzip.decompress(data)
-    streamed = b"".join(tcomp.iter_decompressed(BAM, threads=2, read_size=50_000))
+    assert bytes(tbgzf.decompress(data, threads=2)) == gzip.decompress(data)
+    streamed = b"".join(tbgzf.iter_decompressed(BAM, threads=2, read_size=50_000))
     assert streamed == gzip.decompress(data)
 
 
@@ -116,9 +116,9 @@ def test_bgzf_corrupt_block_raises():
         data = bytearray(fh.read())
     data[-40] ^= 0xFF  # inside the last data member's payload or trailer
     with pytest.raises(ValueError):
-        tcomp.decompress(bytes(data))
+        tbgzf.decompress(bytes(data))
     with pytest.raises(ValueError, match="truncated"):
-        tcomp.split_blocks(bytes(data[:-5]))
+        tbgzf.split_blocks(bytes(data[:-5]))
 
 
 def test_read_bam_matches_reference():
@@ -168,13 +168,14 @@ def test_native_oracle_matches_python():
 
 def test_port_imports_no_jax():
     """The port runs where JAX is not installed: importing it, its SW and
-    PDHMM APIs, their kernel wrappers and the region pipeline must load
-    neither jax nor gkl_tpu (a fresh interpreter, since this test process
+    PDHMM APIs, their kernel wrappers, the codec, BAM and validation modules
+    and the pipelines must load neither jax nor gkl_tpu (a fresh interpreter, since this test process
     already holds jax)."""
     code = ("import sys, gkl_tpu_torch, gkl_tpu_torch.cuda_build, gkl_tpu_torch.api_sw, "
             "gkl_tpu_torch.api_pdhmm, gkl_tpu_torch.ops.sw_cuda, "
-            "gkl_tpu_torch.ops.pdhmm_cuda; "
-            "from gkl_tpu_torch.pipeline import region_stream, sw_align_stream; "
+            "gkl_tpu_torch.ops.pdhmm_cuda, gkl_tpu_torch.compression, "
+            "gkl_tpu_torch.compression.bgzf, gkl_tpu_torch.bam, gkl_tpu_torch.validation; "
+            "from gkl_tpu_torch.pipeline import bam_recompress, region_stream, sw_align_stream; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gkl_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)

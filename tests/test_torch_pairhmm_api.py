@@ -291,6 +291,37 @@ def test_const_quals_detection():
     assert api._const_quals_of(ragged) is None
 
 
+@pytest.mark.parametrize("cap", [0, 4, 10**6])
+def test_thread_cap_on_one_device(cap):
+    """The thread clamp maps onto local devices as the JAX package's does
+    (gkl_tpu/api.py:273-296): 0 = all, N = at most N; on one device every
+    cap gives the cap-1 engine and its likelihoods."""
+    reads, haps = _golden_reads(golden.load_pairhmm_cases()[:6])
+    want = PairHMM(PairHMMNativeArguments(max_number_of_threads=1),
+                   device="cpu").compute_likelihoods(reads, haps)
+    hmm = PairHMM(PairHMMNativeArguments(max_number_of_threads=cap), device="cpu")
+    assert hmm.args.max_number_of_threads == cap
+    np.testing.assert_array_equal(hmm.compute_likelihoods(reads, haps), want)
+
+
+@pytest.mark.parametrize("cards, cap, spans", [(1, 0, False), (1, 4, False), (2, 1, False),
+                                               (2, 0, True), (2, 4, True), (8, 2, True)])
+def test_thread_cap_past_one_card(monkeypatch, cards, cap, spans):
+    """A clamp that spans several visible cards still raises (no multi-GPU
+    engine yet); one card, or a cap of 1, builds the engine."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    from gkl_tpu_torch import utils
+
+    assert utils.available_parallelism("cuda") == cards
+    assert utils.available_parallelism("cpu") == 1
+    args = PairHMMNativeArguments(max_number_of_threads=cap)
+    if spans:
+        with pytest.raises(NotImplementedError):
+            PairHMM(args)
+    else:
+        assert PairHMM(args).device.type == "cuda"
+
+
 def test_extract_lanes_matches_materialize():
     rng = np.random.default_rng(5)
     haps = [BASES[rng.integers(0, 4, int(rng.integers(8, 40)))] for _ in range(3)]
@@ -312,8 +343,10 @@ def test_extract_lanes_matches_materialize():
 
 def test_argument_checks():
     reads, haps = _golden_reads(golden.load_pairhmm_cases()[:1])
-    with pytest.raises(NotImplementedError):
-        PairHMM(PairHMMNativeArguments(max_number_of_threads=0), device="cpu")
+    # all devices of the CPU are one: the clamp builds the one-device engine
+    capped = PairHMM(PairHMMNativeArguments(max_number_of_threads=0), device="cpu")
+    np.testing.assert_array_equal(capped.compute_likelihoods(reads, haps),
+                                  PairHMM(device="cpu").compute_likelihoods(reads, haps))
     with pytest.raises(ValueError):
         PairHMM(PairHMMNativeArguments(max_number_of_threads=-1), device="cpu")
     hmm = PairHMM(device="cpu")
