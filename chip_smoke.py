@@ -88,6 +88,24 @@ before printing any result.  Phases, one line each (or a few):
     record bytes and ends in the BGZF EOF block; logs the compressed bytes
     and the payload MB/s.
 
+15. the multi-device layer (``gkl_tpu_torch.parallel``), its times beside
+    the card's name and power limit: (a) phase 11's corpus through
+    ``PairHMM(mesh=)``, ``SmithWaterman(mesh=)`` and ``PDHMM(mesh=)`` on a
+    ``dp`` mesh of every visible card, or of two shards on cuda:0 when
+    there is one card (two shards on one card are not two cards), three
+    times: the first run's outputs bit for bit phase 11's, with the same
+    rescued lanes; each kernel's launches on each shard and device time by
+    CUDA events (``parallel.mesh.TRACE``) and the median wall beside phase
+    11's; phase 13's long region (the column kernel) and ``_raw_batch`` at
+    phase 2's shape (the rows kernel) on the mesh, bit for bit phases 13
+    and 12a; (b) ``max_number_of_threads=0`` on this machine and the mesh
+    it builds; (c) two processes of this script (``--worker``, each on
+    cuda:<rank % cards>) in a gloo group through
+    ``tests/torch_distributed_worker.py``: the ``*_global`` entries, the
+    indexed engine and the three APIs at phase 2's, 8a's and 7a's shapes,
+    each process's lanes bit for bit the whole batch's.  Its counts go on
+    their own lines; the kernels line keeps phases 11, 13 and 12a's.
+
 ``python3 chip_smoke.py --profile`` runs phases 0-1 and then the main path
 under ``torch.profiler`` instead: stage times, the card's busy time and
 idle share, and device time by kernel and copy, as one JSON line.
@@ -1219,7 +1237,12 @@ def phase_region_corpus(c):
         pairhmm_max_abs_err=err, pdhmm_max_abs_err=pd_oracle_err, sw_reads_exact=n_sw)
     if n_sw < 640:
         raise AssertionError(f"only {n_sw} SW reads checked")
-    return launches, pd_err
+    return dict(launches=launches, pd_err=pd_err, outputs=runs[0]["outputs"],
+                wall_s_median=med["wall_s"], pairhmm_rescued=runs[0]["pairhmm_rescued"],
+                pdhmm_rescued=runs[0]["pdhmm_rescued"],
+                kernel_ms_first={"pairhmm_scaled": sum(s.elapsed_time(e) for s, e in hmm_events),
+                                 "sw_forward": sum(s.elapsed_time(e) for s, e in sw_events),
+                                 "pdhmm": sum(s.elapsed_time(e) for s, e in pd_events)})
 
 
 def dense_batch(R, H, P, seed, mut, deep_every=16):
@@ -1344,7 +1367,7 @@ def phase_long_kernels():
             cols_entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
         cols_entry["max_abs_err"] = max(cols_entry["max_abs_err"], err)
         del planes, t, variants, k_out, t_out
-    return rows_entry, cols_entry, rows_launches
+    return rows_entry, cols_entry, rows_launches, raw
 
 
 def cols_launch_geometry(t) -> dict:
@@ -1545,7 +1568,7 @@ def phase_long_region():
         raise AssertionError("NaN or positive likelihoods")
     if err >= TOL_ORACLE:
         raise AssertionError(f"long region vs f64 oracle: max |err| = {err:.3e}")
-    return launches["pairhmm_cols"], twin_err
+    return launches["pairhmm_cols"], twin_err, lik
 
 
 def phase_validation(c):
@@ -1634,6 +1657,195 @@ def phase_validation(c):
                     payload_mb_per_s=payload_bytes / write_s / 1e6, **host)
 
 
+def shard_trace(trace) -> dict:
+    """Launches and device milliseconds per (kernel, shard) of a
+    ``parallel.mesh.TRACE``, and each kernel's shard imbalance (its
+    busiest shard's time over the mean of its shards)."""
+    per = {}
+    for name, k, dev, start, stop in trace:
+        n, ms = per.get((name, k), (0, 0.0))
+        per[(name, k)] = (n + 1, ms + start.elapsed_time(stop))
+    out = {f"{name}_shard{k}": {"launches": n, "device_ms": ms}
+           for (name, k), (n, ms) in sorted(per.items())}
+    for name in {name for name, _ in per}:
+        times = [ms for (nm, _), (_, ms) in per.items() if nm == name]
+        out[f"{name}_imbalance"] = max(times) / (sum(times) / len(times))
+    return out
+
+
+def run_workers(timeout=300):
+    """15c: this script twice more, as the two ranks of a gloo group on
+    127.0.0.1 (``tests/torch_distributed_worker.py``), each waited for at
+    most ``timeout`` seconds; both are killed if either times out.
+    Returns their (rc, stdout, stderr)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                               coordinator, "2", str(rank)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=timeout)
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def phase_multi_device(c, region, long_lik, raw_12a):
+    """15: the multi-device layer.  (a) The main path on a dp mesh: every
+    visible card, or two shards on cuda:0 when there is one card (two
+    shards on one card are not two cards).  Phase 11's corpus through
+    ``PairHMM(mesh=)``, ``SmithWaterman(mesh=)`` and ``PDHMM(mesh=)`` in
+    ``run_region``'s order, three times, each run's launches per kernel
+    counted and the first run's per-shard launches and device times read
+    from CUDA events; its outputs must equal phase 11's bit for bit (the
+    likelihoods, the CIGARs and offsets, the PDHMM likelihoods) with the
+    same rescued lanes.  Phase 13's long region through ``PairHMM(mesh=)``
+    (the column kernel sharded) must equal phase 13's likelihoods, and
+    ``_raw_batch`` at phase 2's shape (the rows kernel sharded) phase 12a's
+    raw results.  (b) The thread cap 0 on this machine, and the mesh it
+    builds.  (c) Two processes (``run_workers``), each on cuda:<rank %
+    cards>, through the ``*_global`` entries at phase 2's, 8a's and 7a's
+    shapes: both must exit 0 with every leg bit for bit."""
+    import torch
+
+    from gkl_tpu_torch import (PDHMM, HaplotypeData, PairHMM, PairHMMNativeArguments,
+                               SmithWaterman, parallel, profiling)
+    from gkl_tpu_torch import batch as batch_mod
+    from gkl_tpu_torch.ops import pairhmm_cols, pairhmm_cuda, pdhmm_cuda, sw_cuda
+    from gkl_tpu_torch.parallel import mesh as mesh_mod
+
+    card = card_and_power_limit()
+    cards = torch.cuda.device_count()
+    mesh = (parallel.data_parallel_mesh() if cards > 1
+            else parallel.data_parallel_mesh(devices=["cuda:0", "cuda:0"]))
+    engines = (PairHMM(mesh=mesh), SmithWaterman(mesh=mesh), PDHMM(mesh=mesh))
+    default_rescue_policy()
+    os.environ["GKL_TPU_METRICS"] = "1"
+    runs = []
+    for k in range(3):
+        profiling.METRICS.reset()
+        pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+        mesh_mod.TRACE = [] if k == 0 else None
+        try:
+            outputs, stage_s = run_region(c, *engines)
+            torch.cuda.synchronize()
+            trace = mesh_mod.TRACE
+        finally:
+            mesh_mod.TRACE = None
+        m = profiling.METRICS.snapshot()
+        runs.append(dict(outputs=outputs, wall_s=sum(stage_s), stage_s=stage_s, trace=trace,
+                         launches={"pairhmm_scaled": pairhmm_cuda.LAUNCHES,
+                                   "sw_forward": sw_cuda.LAUNCHES, "pdhmm": pdhmm_cuda.LAUNCHES},
+                         pairhmm_rescued=m.get("pairhmm_rescue", {}).get("items", 0),
+                         pdhmm_rescued=m.get("pdhmm_rescue", {}).get("items", 0)))
+    os.environ.pop("GKL_TPU_METRICS")
+    first = runs[0]
+    lik, best, aligned, pd_lik = first["outputs"]
+    w_lik, w_best, w_aligned, w_pd_lik = region["outputs"]
+    differ = {
+        "likelihoods": int((lik.view(np.int64) != w_lik.view(np.int64)).sum()),
+        "best": int((best != w_best).sum()),
+        "cigars_offsets": sum((a.cigar, a.alignment_offset) != (b.cigar, b.alignment_offset)
+                              for a, b in zip(aligned, w_aligned)),
+        "pdhmm_likelihoods": int((pd_lik.view(np.int64) != w_pd_lik.view(np.int64)).sum())}
+    shards = shard_trace(first["trace"])
+    log("15a mesh_region_corpus", card=repr(card), mesh=[str(d) for d in mesh.devices],
+        shards=mesh.size, distinct_cards=len(set(mesh.devices)),
+        **{f"launches_{k}": v for k, v in first["launches"].items()},
+        pairhmm_rescued_lanes=first["pairhmm_rescued"], pdhmm_rescued_lanes=first["pdhmm_rescued"],
+        phase11_pairhmm_rescued_lanes=region["pairhmm_rescued"],
+        phase11_pdhmm_rescued_lanes=region["pdhmm_rescued"],
+        **{f"differ_from_phase11_{k}": v for k, v in differ.items()},
+        wall_s_median_of_3=float(np.median([r["wall_s"] for r in runs])),
+        phase11_wall_s_median_of_3=region["wall_s_median"],
+        stage_s_first=[round(x, 6) for x in first["stage_s"]],
+        phase11_kernel_ms_first=region["kernel_ms_first"])
+    print(json.dumps({"15a_shards": shards}), flush=True)
+    if any(differ.values()):
+        raise AssertionError(f"the mesh's main path differs from phase 11's: {differ}")
+    if (first["pairhmm_rescued"], first["pdhmm_rescued"]) != (region["pairhmm_rescued"],
+                                                              region["pdhmm_rescued"]):
+        raise AssertionError("the mesh rescued other lanes than phase 11")
+    for name in ("pairhmm_scaled", "sw_forward", "pdhmm"):
+        ran = [shards.get(f"{name}_shard{k}", {}).get("launches", 0) for k in range(mesh.size)]
+        if min(ran) <= 0 or sum(ran) != first["launches"][name]:
+            raise AssertionError(f"{name}: launches per shard {ran}, "
+                                 f"{first['launches'][name]} in all")
+
+    # the long region (column kernel) and _raw_batch (rows kernel) sharded
+    haps, reads, _ = long_region()
+    rd, hd = to_read_data(reads), [HaplotypeData(h) for h in haps]
+    pairhmm_cols.LAUNCHES = pairhmm_cuda.LAUNCHES = pairhmm_cuda.ROWS_LAUNCHES = 0
+    mesh_mod.TRACE = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = engines[0].compute_likelihoods(rd, hd).reshape(long_lik.shape)
+        long_wall = time.perf_counter() - t0
+        cols_launches = pairhmm_cols.LAUNCHES
+        pairhmm_cuda.ROWS_LAUNCHES = 0
+        arrays = gatk_like_batch(128, 224, 2048)
+        raw = engines[0]._raw_batch(batch_mod.PackedPairs(*arrays, n_real=2048))
+        torch.cuda.synchronize()
+        trace = mesh_mod.TRACE
+    finally:
+        mesh_mod.TRACE = None
+    long_differ = int((got.view(np.int64) != long_lik.view(np.int64)).sum())
+    raw_differ = int((raw.view(np.int32) != raw_12a.view(np.int32)).sum())
+    log("15a mesh_long_and_rows", card=repr(card), long_region_lanes=got.size,
+        launches_pairhmm_cols=cols_launches, launches_pairhmm_scaled=pairhmm_cuda.LAUNCHES,
+        long_region_wall_s=long_wall, long_region_differ_from_phase13=long_differ,
+        raw_batch_launches_pairhmm_rows=pairhmm_cuda.ROWS_LAUNCHES,
+        raw_batch_differ_from_12a=raw_differ)
+    print(json.dumps({"15a_long_and_rows_shards": shard_trace(trace)}), flush=True)
+    if long_differ or raw_differ or cols_launches < mesh.size or pairhmm_cuda.LAUNCHES:
+        raise AssertionError(f"long region: {long_differ} lanes differ, {cols_launches} cols "
+                             f"launches; _raw_batch: {raw_differ} lanes differ")
+    if pairhmm_cuda.ROWS_LAUNCHES != mesh.size:
+        raise AssertionError(f"_raw_batch made {pairhmm_cuda.ROWS_LAUNCHES} rows launches")
+
+    # (b) the thread cap on this machine
+    capped = PairHMM(PairHMMNativeArguments(max_number_of_threads=0))
+    log("15b thread_cap", cards=cards, cap=0,
+        mesh=None if capped.mesh is None else [str(d) for d in capped.mesh.devices])
+    if (capped.mesh is None) != (cards == 1):
+        raise AssertionError(f"thread cap 0 on {cards} cards built mesh {capped.mesh}")
+
+    # (c) two processes through torch.distributed
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_distributed_worker import LEGS
+
+    t0 = time.perf_counter()
+    outs = run_workers()
+    wall = time.perf_counter() - t0
+    for rank, (rc, out, err) in enumerate(outs):
+        got = ref = None
+        for line in out.splitlines():
+            if line.startswith("RESULT "):
+                got = np.array(json.loads(line[7:]), np.float64)
+            elif line.startswith("REF "):
+                ref = np.array(json.loads(line[4:]), np.float64)
+        legs = [leg for leg in LEGS if f"{leg} ok" in out]
+        log("15c two_processes", rank=rank, rc=rc, legs_passed=len(legs), legs=len(LEGS),
+            plain_twin_lanes_not_bit_equal=(None if got is None or ref is None
+                                            or len(got) != len(ref) else int((got != ref).sum())),
+            wall_s=wall)
+        if rc != 0 or len(legs) != len(LEGS):
+            raise AssertionError(f"worker {rank}: rc {rc}, legs {legs}: {err[-3000:]}")
+        if got is None or ref is None or len(got) != len(ref):
+            raise AssertionError(f"worker {rank}: no plain-engine lanes")
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
+
+
 def phase_profile():
     """``--profile``: the main path once to warm up, then once under
     ``torch.profiler``: each stage's wall time, the card's busy time (the
@@ -1671,6 +1883,13 @@ def phase_profile():
 
 def main(argv) -> int:
     sys.path.insert(0, ROOT)
+    if argv[:1] == ["--worker"]:
+        # one of phase 15c's two processes
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import torch_distributed_worker
+
+        torch_distributed_worker.run(argv[1], int(argv[2]), int(argv[3]), "cuda")
+        return 0
     phase_device()
     import torch
 
@@ -1691,12 +1910,14 @@ def main(argv) -> int:
     phase_pdhmm_golden()
     phase_region()
     corpus = region_corpus()
-    launches, path_err = phase_region_corpus(corpus)
-    pd_timing["max_abs_err"] = max(pd_timing["max_abs_err"], path_err)
-    rows_timing, cols_timing, launches["pairhmm_rows"] = phase_long_kernels()
-    launches["pairhmm_cols"], path_err = phase_long_region()
+    region = phase_region_corpus(corpus)
+    launches = dict(region["launches"])
+    pd_timing["max_abs_err"] = max(pd_timing["max_abs_err"], region["pd_err"])
+    rows_timing, cols_timing, launches["pairhmm_rows"], raw_12a = phase_long_kernels()
+    launches["pairhmm_cols"], path_err, long_lik = phase_long_region()
     cols_timing["max_abs_err"] = max(cols_timing["max_abs_err"], path_err)
     phase_validation(corpus)
+    phase_multi_device(corpus, region, long_lik, raw_12a)
     kernels = [
         ("pairhmm_scaled", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
         ("pairhmm_rows", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:268", rows_timing),

@@ -7,7 +7,9 @@ CUDA kernel (``csrc/*.cu``) with a plain PyTorch twin for CPU tensors; the
 host f64 rescues and the CIGAR walk on the port's byte-identical copy of
 the JAX package's native C++ (``native/``); the DEFLATE codec and BAM
 reading and writing (``compression/``, ``bam``); the BAM streaming and
-region pipelines; and the validation corpus (``validation``).  Module
+region pipelines; the validation corpus (``validation``); and the
+multi-device layer (``parallel``: a ``dp`` mesh of CUDA devices behind
+the engines' ``mesh=``, and ``torch.distributed`` across processes).  Module
 names mirror ``gkl_tpu``'s.  This package imports neither JAX nor
 ``gkl_tpu``.
 """
@@ -30,6 +32,7 @@ from .api_pdhmm import (
 )
 from .api_sw import OverhangStrategy, SmithWaterman, SWAlignerResult, SWParameters
 from .context import MIN_ACCEPTED
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -51,5 +54,6 @@ __all__ = [
     "SWParameters",
     "SmithWaterman",
     "MIN_ACCEPTED",
+    "parallel",
     "__version__",
 ]

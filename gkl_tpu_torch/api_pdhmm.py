@@ -8,7 +8,8 @@ Parity with IntelPDHMM (``pdhmm/IntelPDHMM.java:46-220``):
   haplotypes (read-major cross product, pdhmm/JavaData.h:186-236).
 
 Engines: on ``PDHMM.device`` (CUDA by default) the float32 CUDA kernel
-``csrc/pdhmm.cu`` over deduplicated, memory-budgeted lane slices, with
+``csrc/pdhmm.cu`` over deduplicated, memory-budgeted lane slices (each
+slice lane-sharded when the engine has a ``mesh``), with
 every lane below ``MIN_ACCEPTED`` recomputed on the host's exact f64 oracle
 (``gkl_tpu_torch/native/pdhmm_oracle.cc``, a byte-identical copy of
 ``gkl_tpu/native/pdhmm_oracle.cc``) — the reference's
@@ -33,6 +34,7 @@ from .api import HaplotypeData, ReadData
 from .context import MIN_ACCEPTED, pdhmm_context
 from .ops import pdhmm as pdhmm_ops
 from .ops import pdhmm_cuda, pdhmm_ref
+from .parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass
@@ -53,9 +55,9 @@ class PDHaplotypeData(HaplotypeData):
 class KernelLevel(int):
     """AVXLevel analogue (pdhmm-implementation.h:45-58): which engine.
 
-    FASTEST_AVAILABLE and PALLAS run the CUDA kernel on a CUDA device
-    (the plain twin on ``device="cpu"``); PALLAS raises where no kernel can
-    run.  SCALAR runs the native serial f64 oracle, the reference's scalar
+    FASTEST_AVAILABLE and PALLAS run the CUDA kernel on a CUDA device or
+    mesh (the plain twin on ``device="cpu"``); PALLAS raises where no
+    kernel can run.  SCALAR runs the native serial f64 oracle, the reference's scalar
     implementation.
     """
 
@@ -90,11 +92,17 @@ class PDHMMNativeArguments:
 
 
 class PDHMM:
-    """PDHMM forward-likelihood engine (IntelPDHMM)."""
+    """PDHMM forward-likelihood engine (IntelPDHMM).
+
+    ``mesh``: an optional ``parallel.Mesh``; the f32 lane slices then shard
+    lane-wise over it.  ``max_number_of_threads`` stays the f64 oracle's
+    host threads, as in the JAX package's PDHMM."""
 
     def __init__(self, args: PDHMMNativeArguments | None = None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: mesh_mod.Mesh | None = None):
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._lane_multiple = batch_mod.LANE_MULTIPLE * (mesh.size if mesh else 1)
         self.initialize(args or PDHMMNativeArguments())
 
     def initialize(self, args: PDHMMNativeArguments) -> None:
@@ -139,7 +147,10 @@ class PDHMM:
                 urq.append(qs)
             hidx.append(hmap[hk])
             ridx.append(rmap[rk])
-        pk = batch_mod.pack_pdhmm_indexed(uh, uhpd, ur, urq, ridx, hidx)
+        pk = batch_mod.pack_pdhmm_indexed(uh, uhpd, ur, urq, ridx, hidx,
+                                          lane_multiple=self._lane_multiple)
+        if self.mesh is not None:
+            return mesh_mod.dispatch_pdhmm(self.mesh, pk).wait()[:pk.n_real]
         names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
         dev = {k: torch.from_numpy(np.ascontiguousarray(getattr(pk, k))).to(self.device)
                for k in names}
@@ -158,13 +169,14 @@ class PDHMM:
         if self.args.use_double_precision or level == KernelLevel.SCALAR:
             out = self._oracle(haps, hap_pds, reads, quals)
         else:
-            if level == KernelLevel.PALLAS and self.device.type != "cuda":
+            devices = self.mesh.devices if self.mesh is not None else (self.device,)
+            if level == KernelLevel.PALLAS and any(d.type != "cuda" for d in devices):
                 # an explicit engine that cannot run raises, as the
                 # reference does for an unavailable AVX level
                 # (pdhmm-implementation.h:96-133)
                 raise RuntimeError(
                     f"KernelLevel.PALLAS requested but no PDHMM kernel runs on "
-                    f"device {self.device}")
+                    f"devices {[str(d) for d in devices]}")
             out = self._compute_f32(haps, hap_pds, reads, quals, metrics_on)
         if metrics_on:
             profiling.METRICS.record(
@@ -200,9 +212,16 @@ class PDHMM:
         max_h = batch_mod.bucket_length(max(len(h) for h in haps))
         bytes_per_lane = (pdhmm_cuda.boundary_bytes_per_lane(max_r, max_h)
                           + 5 * max_r + 2 * max_h + 16)
-        lm = batch_mod.LANE_MULTIPLE
+        lm = self._lane_multiple
+        # the budget holds on each device: a slice puts 1/size of its lanes
+        # on each shard, and shards that share a device add up there
+        shards, per_device = 1, 1
+        if self.mesh is not None:
+            shards = self.mesh.size
+            per_device = max(self.mesh.devices.count(d) for d in self.mesh.devices)
+        budget_lanes = self.args.max_memory_in_mb * 1024 * 1024 // bytes_per_lane
         # whole lane-padding units, so a padded slice stays within the budget
-        max_lanes = max(lm, self.args.max_memory_in_mb * 1024 * 1024 // bytes_per_lane // lm * lm)
+        max_lanes = max(lm, budget_lanes * shards // per_device // lm * lm)
         ctx = pdhmm_context("float32")
         out = np.zeros(n, np.float64)
         for start in range(0, n, max_lanes):

@@ -116,6 +116,12 @@ class PackedPairsIndexed:
     haplen: np.ndarray  # (P,) int32
     rslen: np.ndarray  # (P,) int32
     n_real: int
+    # full-pattern layout: ridx == arange(P)//nh and hidx == arange(P)%nh
+    # for every lane, pads included, and the read planes pad to P//nh
+    # columns, so that a dp mesh cuts unique reads and pair lanes at the
+    # same places (each shard's pairs reference only its own read slab).
+    # None = the compact single-device layout.
+    pattern_nh: int | None = None
 
     def device_bytes(self) -> int:
         """Device bytes of this batch while its launch is in flight: the
@@ -159,15 +165,24 @@ def pack_pairs_indexed(
     lane_multiple: int = LANE_MULTIPLE,
     qual_fill: int = 40,
     const_quals: tuple[int, int, int] | None = None,
+    full_pattern: bool = False,
 ) -> PackedPairsIndexed:
     """Pack the full ``reads`` x ``haps`` cross product (read-major) with
     deduplicated planes.  ``read_quals`` holds (q, iq, dq, gcp) per read;
-    iq/dq/gcp are ignored when ``const_quals`` is given."""
+    iq/dq/gcp are ignored when ``const_quals`` is given.  ``full_pattern``
+    pads the read planes to P//nh columns so that every lane, pads
+    included, follows ridx = lane//nh, hidx = lane%nh (see
+    PackedPairsIndexed.pattern_nh)."""
     nr, nh = len(reads), len(haps)
     H = bucket_length(max(len(h) for h in haps))
     R = bucket_length(max(len(r) for r in reads))
     nu_r = bucket_lanes(nr, 8)
     nu_h = bucket_lanes(nh, 8)
+    P = bucket_lanes(nr * nh, lane_multiple)
+    if full_pattern:
+        if P % nh:
+            raise ValueError("full_pattern needs nh | padded lane count")
+        nu_r = P // nh
 
     readq_u = np.stack([
         _pad_columns(reads, R, nu_r, 0),
@@ -183,11 +198,14 @@ def pack_pairs_indexed(
     hap_u = _pad_columns(haps, H, nu_h, 0)
 
     n = nr * nh
-    P = bucket_lanes(n, lane_multiple)
-    ridx = np.zeros(P, np.int32)
-    hidx = np.zeros(P, np.int32)
-    ridx[:n] = np.repeat(np.arange(nr, dtype=np.int32), nh)
-    hidx[:n] = np.tile(np.arange(nh, dtype=np.int32), nr)
+    if full_pattern:
+        ridx = np.arange(P, dtype=np.int32) // nh
+        hidx = np.arange(P, dtype=np.int32) % nh
+    else:
+        ridx = np.zeros(P, np.int32)
+        hidx = np.zeros(P, np.int32)
+        ridx[:n] = np.repeat(np.arange(nr, dtype=np.int32), nh)
+        hidx[:n] = np.tile(np.arange(nh, dtype=np.int32), nr)
     rlen = np.array([len(r) for r in reads], np.int32)
     hlen = np.array([len(h) for h in haps], np.int32)
     haplen = np.ones(P, np.int32)
@@ -195,7 +213,8 @@ def pack_pairs_indexed(
     haplen[:n] = hlen[hidx[:n]]
     rslen[:n] = rlen[ridx[:n]]
     return PackedPairsIndexed(hap_u, readq_u, quals_u, const_quals,
-                              ridx, hidx, haplen, rslen, n)
+                              ridx, hidx, haplen, rslen, n,
+                              pattern_nh=nh if full_pattern else None)
 
 
 @dataclasses.dataclass
@@ -293,6 +312,7 @@ def from_reference(packed) -> PackedPairs | PackedPairsIndexed | PackedPDHMMInde
             haplen=np.asarray(packed.haplen, np.int32),
             rslen=np.asarray(packed.rslen, np.int32),
             n_real=int(packed.n_real),
+            pattern_nh=getattr(packed, "pattern_nh", None),
         )
     return PackedPairs(*(np.asarray(getattr(packed, f), np.uint8)
                          for f in ("hap", "read", "q", "iq", "dq", "gcp")),

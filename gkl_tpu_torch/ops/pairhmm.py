@@ -68,6 +68,14 @@ def _shift_down(a: torch.Tensor, k: int, fill: torch.Tensor) -> torch.Tensor:
     return torch.cat([fill.expand(k, *a.shape[1:]), a[:-k]], dim=0)
 
 
+def lane_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 of a (length, lane) tensor, each lane in one order
+    whatever the batch's width: PyTorch's sum along a strided axis groups
+    the terms by the lane count, so a lane's last bits would depend on its
+    neighbours, and a sharded batch would not equal the whole batch."""
+    return a.t().contiguous().sum(dim=1)
+
+
 def affine_scan(am: torch.Tensor, ae: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of ``y[c] = 2^ae[c] * am[c] * y[c-1] + b[c]`` along
     axis 0 (Hillis-Steele, log2(H) levels)."""
@@ -151,7 +159,7 @@ def pairhmm_raw(hap, read, q, iq, dq, gcp, haplen, rslen, *,
         am, ae = _mant_exp(p_yy[r][None, :].expand(H, P))
         y = affine_scan(am, ae, b)
         m, x = m_new, x_new
-        row_sum = ((m + x) * col_valid).sum(dim=0)
+        row_sum = lane_sum((m + x) * col_valid)
         acc = acc + torch.where(rslen == r + 1, row_sum, torch.zeros_like(row_sum))
     return acc
 

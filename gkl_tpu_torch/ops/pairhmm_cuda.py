@@ -28,7 +28,7 @@ import torch
 
 from .. import context as ctx_mod
 from .. import cuda_build
-from .pairhmm import N_CODE, _shift_down, pairhmm_raw, transition_rows
+from .pairhmm import N_CODE, _shift_down, lane_sum, pairhmm_raw, transition_rows
 
 # Launches of the scaled instance and of the plain (rows) instance of the
 # CUDA kernel in this process.
@@ -183,7 +183,7 @@ def pairhmm_raw_scaled_reference(hap, read, q, iq, dq, gcp, haplen, rslen):
                 else:
                     b = _ftz(_ftz(q_a[r] * b_sh) * p2_a[r]) + b
             m, x, y = m_new, x_new, b
-            row_sum = ((m + x) * col_valid).sum(dim=0)
+            row_sum = lane_sum((m + x) * col_valid)
             acc_chunk = acc_chunk + torch.where(rslen == r + 1, row_sum, torch.zeros_like(row_sum))
             if k == 3:
                 live_mid = ((m + x + y) * col_valid) > 0
@@ -424,16 +424,17 @@ def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
     Ys = torch.empty_like(Ms)
     ciq, cdq, cgcp = const_quals if const_quals is not None else (0, 0, 0)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(
-        hap_u.data_ptr(), H, nu_h,
-        readq_u.data_ptr(), R, nu_r,
-        quals_u.data_ptr() if quals_u is not None else None,
-        int(ciq), int(cdq), int(cgcp),
-        ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
-        ph2pr.data_ptr(), m2m.data_ptr(),
-        Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(),
-        *extra,
-        out.data_ptr(), stream)
+    with torch.cuda.device(device):  # the launcher launches on the current card
+        rc = fn(
+            hap_u.data_ptr(), H, nu_h,
+            readq_u.data_ptr(), R, nu_r,
+            quals_u.data_ptr() if quals_u is not None else None,
+            int(ciq), int(cdq), int(cgcp),
+            ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
+            ph2pr.data_ptr(), m2m.data_ptr(),
+            Ms.data_ptr(), Xs.data_ptr(), Ys.data_ptr(),
+            *extra,
+            out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
     return out

@@ -222,11 +222,12 @@ def pdhmm(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
                          device=device)
     out = torch.empty(P, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.gkl_pdhmm(
-        hap_u.data_ptr(), happd_u.data_ptr(), H, nu_h, readq_u.data_ptr(), R, nu_r,
-        ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
-        q2e.data_ptr(), m2m.data_ptr(), planes.data_ptr(), rows_per_thread, out.data_ptr(),
-        stream)
+    with torch.cuda.device(device):  # the launcher launches on the current card
+        rc = lib.gkl_pdhmm(
+            hap_u.data_ptr(), happd_u.data_ptr(), H, nu_h, readq_u.data_ptr(), R, nu_r,
+            ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
+            q2e.data_ptr(), m2m.data_ptr(), planes.data_ptr(), rows_per_thread, out.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"pdhmm kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -88,11 +88,12 @@ def sw_forward(ref, alt, reflen, altlen, match, mismatch, gap_open, gap_extend, 
     lastrow = torch.zeros((M, P), dtype=torch.int32, device=device)
     lastcol = torch.zeros((P, N), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.gkl_sw_forward(
-        ref_t.data_ptr(), N, alt_t.data_ptr(), M, reflen.data_ptr(), altlen.data_ptr(), P,
-        int(match), int(mismatch), int(gap_open), int(gap_extend), int(bool(indel_boundary)),
-        hs.data_ptr(), fs.data_ptr(), bt.data_ptr(), lastrow.data_ptr(), lastcol.data_ptr(),
-        rows_per_thread, stream)
+    with torch.cuda.device(device):  # the launcher launches on the current card
+        rc = lib.gkl_sw_forward(
+            ref_t.data_ptr(), N, alt_t.data_ptr(), M, reflen.data_ptr(), altlen.data_ptr(), P,
+            int(match), int(mismatch), int(gap_open), int(gap_extend), int(bool(indel_boundary)),
+            hs.data_ptr(), fs.data_ptr(), bt.data_ptr(), lastrow.data_ptr(), lastcol.data_ptr(),
+            rows_per_thread, stream)
     if rc != 0:
         raise RuntimeError(f"sw_forward kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -795,3 +795,102 @@ def test_recompress_round_trip(cuda_device, tmp_path, level):
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a.seq, b.seq)
         np.testing.assert_array_equal(a.qual, b.qual)
+
+
+def _two_shards_on(device):
+    from gkl_tpu_torch import parallel
+
+    return parallel.data_parallel_mesh(devices=[device, device])
+
+
+def test_mesh_apis_on_one_card_equal_one_device(cuda_device):
+    """PairHMM, SmithWaterman and PDHMM on a two-shard mesh of one card
+    equal the one-device engines bit for bit (CIGARs and offsets equal),
+    each kernel launching once a shard for each launch of the engine."""
+    from gkl_tpu_torch import PDHMM, PDHaplotypeData, SmithWaterman, SWParameters
+    from gkl_tpu_torch.api_sw import OverhangStrategy
+    from gkl_tpu_torch.ops import pdhmm_cuda, sw_cuda
+
+    mesh = _two_shards_on(cuda_device)
+    haps, reads, quals = _indexed_batch(1, n_reads=40)
+    rd = [ReadData(r, *q) for r, q in zip(reads, quals)]
+    hd = [HaplotypeData(h) for h in haps]
+    one = PairHMM(device=cuda_device).compute_likelihoods(rd, hd)
+    before = pairhmm_cuda.LAUNCHES
+    mine = PairHMM(mesh=mesh).compute_likelihoods(rd, hd)
+    assert pairhmm_cuda.LAUNCHES - before >= 2
+    np.testing.assert_array_equal(mine, one)
+    pd = np.zeros(max(len(h) for h in haps), np.uint8)
+    pd[10], pd[14] = 2, 4
+    pdd = [PDHaplotypeData(h, haplotype_pdbases=pd[:len(h)]) for h in haps[:3]]
+    before = pdhmm_cuda.LAUNCHES
+    np.testing.assert_array_equal(PDHMM(mesh=mesh).compute_likelihoods(rd, pdd),
+                                  PDHMM(device=cuda_device).compute_likelihoods(rd, pdd))
+    assert pdhmm_cuda.LAUNCHES - before == 3  # two shards, then one device
+    params = SWParameters(200, -150, -260, -11)
+    refs = [haps[k % len(haps)] for k in range(len(reads))]
+    before = sw_cuda.LAUNCHES
+    got = SmithWaterman(mesh=mesh).align_batch(refs, reads, params, OverhangStrategy.SOFTCLIP)
+    assert sw_cuda.LAUNCHES - before >= 2
+    want = SmithWaterman(device=cuda_device).align_batch(refs, reads, params,
+                                                         OverhangStrategy.SOFTCLIP)
+    assert [(g.cigar, g.alignment_offset) for g in got] == \
+        [(w.cigar, w.alignment_offset) for w in want]
+
+
+def test_sharded_engines_on_one_card_equal_the_wrappers(cuda_device):
+    """Every sharded engine of ``parallel`` on two shards of one card: bit
+    for bit its wrapper on the whole batch (SW on the region the walk
+    reads)."""
+    import torch_distributed_worker as w
+
+    from gkl_tpu_torch import parallel
+    from gkl_tpu_torch.ops import pairhmm_cols, pdhmm_cuda, sw_cuda
+
+    mesh = _two_shards_on(cuda_device)
+    planes, pd = w.dense_batch(64, 96, 512, seed=3)
+    packed = tbatch.PackedPairs(*planes, n_real=512)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in (*planes, pd)]
+    lanes = torch.arange(512, dtype=torch.int32, device=cuda_device)
+    whole = dict(hap_u=t[0], readq_u=torch.stack([t[1], t[2]]), ridx=lanes, hidx=lanes,
+                 haplen=t[6], rslen=t[7], quals_u=torch.stack(t[3:6]))
+    np.testing.assert_array_equal(parallel.pairhmm_raw_pallas_sharded(mesh, packed),
+                                  pairhmm_cuda.pairhmm_rows(**whole).cpu().numpy())
+    np.testing.assert_array_equal(parallel.pairhmm_raw_pallas_cols_sharded(mesh, packed),
+                                  pairhmm_cols.pairhmm_cols(**whole).cpu().numpy())
+    m, e, f = parallel.pairhmm_raw_pallas_scaled_sharded(mesh, packed)
+    want = pairhmm_cuda.pairhmm_scaled(**whole).cpu().numpy()
+    np.testing.assert_array_equal(np.stack([m.view(np.int32), e, f]), want)
+    np.testing.assert_array_equal(
+        parallel.pdhmm_raw_pallas_sharded(mesh, packed, pd),
+        pdhmm_cuda.pdhmm(t[0], t[8], torch.stack(t[1:6]), lanes, lanes, t[6],
+                         t[7]).cpu().numpy())
+    ref, alt, reflen, altlen = w.sw_batch(96, 64, 512, seed=4)
+    got = parallel.sw_forward_pallas_sharded(mesh, ref, alt, reflen, altlen, _sw_params())
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+            for a in (ref, alt, reflen, altlen)]
+    want = sw_cuda.sw_forward(*args, *w.GATK, indel_boundary=False)
+    assert sw_cuda.in_range_mismatches(tuple(torch.from_numpy(np.ascontiguousarray(x))
+                                             for x in got),
+                                       tuple(x.cpu() for x in want), args[2], args[3]) == 0
+
+
+def _sw_params():
+    from gkl_tpu_torch import SWParameters
+
+    return SWParameters(200, -150, -260, -11)
+
+
+def test_two_processes_on_card(cuda_device):
+    """The two-process run on the card (``tests/torch_distributed_worker.py``,
+    kind ``cuda``: each rank on cuda:<rank % cards>, gloo between them):
+    every leg bit for bit, and the plain engine's lanes within 1e-6."""
+    from test_torch_distributed import parse_lanes, run_workers
+    from torch_distributed_worker import LEGS
+
+    for rc, out, err in run_workers("cuda", timeout=600):
+        assert rc == 0, err[-3000:]
+        for leg in LEGS:
+            assert f"{leg} ok" in out, (leg, out[-2000:])
+        got, ref = parse_lanes(out)
+        np.testing.assert_allclose(got, ref, rtol=1e-6)

@@ -179,6 +179,23 @@ def test_cuda_build_goes_to_cache_dir_from_csrc(fresh_loaders, tmp_path):
     assert _in_port(args[-1]) and args[-1].endswith(".cu")
 
 
+def test_parallel_imports_without_the_jax_package(tmp_path):
+    """In a copy of ``gkl_tpu_torch/`` alone, importing its multi-device
+    layer and building a CPU mesh loads neither ``jax`` nor ``gkl_tpu``."""
+    shutil.copytree(PORT, tmp_path / "gkl_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = ("import sys; import gkl_tpu_torch.parallel as p; "
+            "from gkl_tpu_torch.parallel import distributed, mesh; "
+            "m = p.data_parallel_mesh(devices=['cpu'] * 2); assert m.size == 2, m; "
+            "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'gkl_tpu')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert not (tmp_path / "gkl_tpu").exists()
+
+
 def test_port_builds_without_the_jax_package(tmp_path):
     """A copy of ``gkl_tpu_torch/`` alone, with no ``gkl_tpu/`` beside it,
     builds and runs the PairHMM rescue's f64 oracle (into its own

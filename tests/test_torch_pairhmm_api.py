@@ -307,19 +307,22 @@ def test_thread_cap_on_one_device(cap):
 @pytest.mark.parametrize("cards, cap, spans", [(1, 0, False), (1, 4, False), (2, 1, False),
                                                (2, 0, True), (2, 4, True), (8, 2, True)])
 def test_thread_cap_past_one_card(monkeypatch, cards, cap, spans):
-    """A clamp that spans several visible cards still raises (no multi-GPU
-    engine yet); one card, or a cap of 1, builds the engine."""
+    """A clamp that spans several visible cards builds a dp mesh over the
+    first min(cap, cards) of them (0 = all), as gkl_tpu/api.py:273-296
+    does; one card, or a cap of 1, builds the one-device engine."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     from gkl_tpu_torch import utils
 
     assert utils.available_parallelism("cuda") == cards
     assert utils.available_parallelism("cpu") == 1
     args = PairHMMNativeArguments(max_number_of_threads=cap)
+    hmm = PairHMM(args)
+    assert hmm.device.type == "cuda"
     if spans:
-        with pytest.raises(NotImplementedError):
-            PairHMM(args)
+        n = cards if cap == 0 else min(cap, cards)
+        assert hmm.mesh.devices == tuple(torch.device("cuda", i) for i in range(n))
     else:
-        assert PairHMM(args).device.type == "cuda"
+        assert hmm.mesh is None
 
 
 def test_extract_lanes_matches_materialize():
