@@ -105,6 +105,24 @@ before printing any result.  Phases, one line each (or a few):
     indexed engine and the three APIs at phase 2's, 8a's and 7a's shapes,
     each process's lanes bit for bit the whole batch's.  Its counts go on
     their own lines; the kernels line keeps phases 11, 13 and 12a's.
+16. the modules that complete the port, each part on its own lines beside
+    the card's name and power limit: (a) the sequence-parallel PairHMM
+    (``parallel.mesh.pairhmm_raw_sp``) on an ``sp`` mesh of 2 entries (two
+    cards, or cuda:0 twice) at the long region's width: its first 512
+    reads of 151 bases against its 4 haplotypes (2,048 lanes, H bucket
+    5,120, R bucket 160), in f64 against the one-device plain engine
+    (rtol 1e-12) and a 256-lane sample of the native oracle (1e-9 in
+    log10), in f32 against the one-device f32 engine by ``compare_raw`` and
+    the oracle (TOL_ORACLE); walls of both; (b) ``PairHMM._raw_batch(packed,
+    "float64")`` on 12a's batch on the card, against the CPU on 256 lanes
+    (rtol 1e-12), the oracle (1e-9) and 12a's rows kernel (TOL_IN_RANGE);
+    (c) one ``run_region`` of phase 11's corpus under ``profiling.trace``
+    with ``GKL_TPU_METRICS=1`` (the trace names the three kernels;
+    ``METRICS.report()`` on one line), and ``profile_csv`` of the corpus
+    BAM's first 4 MiB of payload at levels 1, 6, 9 (host times); (d) the
+    corpus under ``debug.debug_context()``, bit for bit phase 11's; (e) the
+    seeded draws of ``tests/test_kernel_fuzz.py`` through each CUDA kernel,
+    bit for bit its kernel-order twin (``tests/torch_fuzz_cases.py``).
 
 ``python3 chip_smoke.py --profile`` runs phases 0-1 and then the main path
 under ``torch.profiler`` instead: stage times, the card's busy time and
@@ -149,6 +167,16 @@ GATK_GAP_QUALS = (45, 45, 10)
 # (gkl_tpu/api.py COLS_MAX_READ); the port's column kernel covers both, and
 # phases 12-13 show it on reads on either side
 JAX_COLS_MAX_READ = 128
+# phase 16: the long region's reads of 151 bases that 16a packs against its
+# 4 haplotypes (2,048 lanes), its oracle sample, 16b's lanes run again on
+# the CPU, 16c's payload for profile_csv and the kernel names the trace
+# must show (the __global__ functions of csrc/)
+SP_READS = (2048, 2560)
+SP_ORACLE_LANES = 256
+RAW_BATCH_CPU_LANES = 256
+PROFILE_CSV_BYTES = 4 << 20
+TRACE_KERNEL_NAMES = {"pairhmm_scaled": "pairhmm_kernel", "sw_forward": "sw_forward_kernel",
+                      "pdhmm": "pdhmm_kernel"}
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s.  int32 (the SW
 # cells): the Hopper white paper's 64 INT32 units per SM, x 132 SMs x the
@@ -1579,7 +1607,8 @@ def phase_validation(c):
     (corpus ``c``).  (b) ``pipeline.bam_recompress`` of that BAM and of the
     test BAM at levels 1, 6 and 9; each output re-read must give the
     source's names, sequences, qualities and raw record bytes, and end in
-    the BGZF EOF block.  Times are host wall seconds."""
+    the BGZF EOF block.  Times are host wall seconds.  Returns the first
+    PROFILE_CSV_BYTES of the corpus BAM's payload (phase 16c)."""
     import tempfile
 
     from gkl_tpu_torch import bam, pipeline, validation
@@ -1631,7 +1660,10 @@ def phase_validation(c):
         for src in (corpus_bam, os.path.join(DATA, "HiSeq.1mb.1RG.2k_lines.bam")):
             with open(src, "rb") as fh:
                 src_bytes = fh.read()
-            payload_bytes = len(bgzf.decompress(src_bytes))
+            payload = bgzf.decompress(src_bytes)
+            payload_bytes = len(payload)
+            if src == corpus_bam:
+                corpus_payload_head = payload[:PROFILE_CSV_BYTES]
             _, want = bam.read_bam(src, keep_raw=True)
             for level in (1, 6, 9):
                 dst = os.path.join(tmp, f"recompressed_{level}.bam")
@@ -1655,6 +1687,20 @@ def phase_validation(c):
                     source_bytes=len(src_bytes), payload_bytes=payload_bytes,
                     compressed_bytes=len(out_bytes), wall_s=write_s,
                     payload_mb_per_s=payload_bytes / write_s / 1e6, **host)
+    return corpus_payload_head
+
+
+def outputs_differ(outputs, want) -> dict:
+    """Lanes and reads where ``run_region`` outputs differ from ``want``'s
+    in any bit."""
+    lik, best, aligned, pd_lik = outputs
+    w_lik, w_best, w_aligned, w_pd_lik = want
+    return {
+        "likelihoods": int((lik.view(np.int64) != w_lik.view(np.int64)).sum()),
+        "best": int((best != w_best).sum()),
+        "cigars_offsets": sum((a.cigar, a.alignment_offset) != (b.cigar, b.alignment_offset)
+                              for a, b in zip(aligned, w_aligned, strict=True)),
+        "pdhmm_likelihoods": int((pd_lik.view(np.int64) != w_pd_lik.view(np.int64)).sum())}
 
 
 def shard_trace(trace) -> dict:
@@ -1749,14 +1795,7 @@ def phase_multi_device(c, region, long_lik, raw_12a):
                          pdhmm_rescued=m.get("pdhmm_rescue", {}).get("items", 0)))
     os.environ.pop("GKL_TPU_METRICS")
     first = runs[0]
-    lik, best, aligned, pd_lik = first["outputs"]
-    w_lik, w_best, w_aligned, w_pd_lik = region["outputs"]
-    differ = {
-        "likelihoods": int((lik.view(np.int64) != w_lik.view(np.int64)).sum()),
-        "best": int((best != w_best).sum()),
-        "cigars_offsets": sum((a.cigar, a.alignment_offset) != (b.cigar, b.alignment_offset)
-                              for a, b in zip(aligned, w_aligned)),
-        "pdhmm_likelihoods": int((pd_lik.view(np.int64) != w_pd_lik.view(np.int64)).sum())}
+    differ = outputs_differ(first["outputs"], region["outputs"])
     shards = shard_trace(first["trace"])
     log("15a mesh_region_corpus", card=repr(card), mesh=[str(d) for d in mesh.devices],
         shards=mesh.size, distinct_cards=len(set(mesh.devices)),
@@ -1846,6 +1885,242 @@ def phase_multi_device(c, region, long_lik, raw_12a):
         np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
+def dense_oracle(packed, lanes):
+    """Exact f64 log10 likelihoods of lanes ``lanes`` of a dense
+    ``batch.PackedPairs`` on the native oracle."""
+    from gkl_tpu_torch.ops import pairhmm_ref
+
+    haps, reads, quals = [], [], []
+    for k in lanes:
+        hl, rl = int(packed.haplen[k]), int(packed.rslen[k])
+        haps.append(packed.hap[:hl, k])
+        reads.append(packed.read[:rl, k])
+        quals.append(tuple(getattr(packed, f)[:rl, k] for f in ("q", "iq", "dq", "gcp")))
+    return pairhmm_ref.pairhmm_scalar_batch(haps, reads, quals)
+
+
+def synced_wall(fn):
+    """``fn()`` and its host wall seconds, from a synchronised start to a
+    synchronised end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sequence_parallel(card):
+    """16a: the sequence-parallel PairHMM at long-haplotype width.  The long
+    region's first 512 reads of 151 bases (2,048 lanes against its 4
+    haplotypes of 2,300-5,000 bases; H bucket 5,120, R bucket 160) through
+    ``parallel.mesh.pairhmm_raw_sp`` on an ``sp`` mesh of 2 entries (two
+    cards, or cuda:0 twice), in f64 and f32, against the one-device plain
+    engine ``ops.pairhmm.pairhmm_raw`` and the native oracle."""
+    import torch
+
+    from gkl_tpu_torch import batch as batch_mod
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+    from gkl_tpu_torch.ops import pairhmm as pairhmm_ops
+    from gkl_tpu_torch.parallel import mesh as mesh_mod
+
+    haps, reads, deep = long_region()
+    picked = range(*SP_READS)
+    rd = to_read_data([reads[i] for i in picked])
+    pairs = [(h, r) for r in rd for h in haps]
+    packed = batch_mod.pack_pairs(
+        [h for h, _ in pairs], [r.read_bases for _, r in pairs],
+        [(r.read_quals, r.insertion_gop, r.deletion_gop, r.overall_gcp) for _, r in pairs])
+    (H, P), R = packed.hap.shape, packed.read.shape[0]
+    mesh = (mesh_mod.sequence_parallel_mesh(2) if torch.cuda.device_count() >= 2
+            else mesh_mod.sequence_parallel_mesh(devices=["cuda:0", "cuda:0"]))
+    planes = [torch.from_numpy(np.ascontiguousarray(getattr(packed, f))).to("cuda")
+              for f in ("hap", "read", "q", "iq", "dq", "gcp", "haplen", "rslen")]
+    sample = np.arange(0, P, P // SP_ORACLE_LANES)
+    want = dense_oracle(packed, sample)
+    out = {}
+    for dtype in ("float64", "float32"):
+        sp, sp_s = synced_wall(lambda: mesh_mod.pairhmm_raw_sp(mesh, *planes, dtype=dtype))
+        one, one_s = synced_wall(lambda: pairhmm_ops.pairhmm_raw(*planes, dtype=dtype))
+        if not (sp.is_cuda and one.is_cuda) or sp.shape != (P,):
+            raise AssertionError(f"16a {dtype}: outputs on {sp.device} and {one.device}, "
+                                 f"shape {tuple(sp.shape)}")
+        sp, one = sp.cpu().numpy(), one.cpu().numpy()
+        if dtype == "float64":
+            rel = float(np.abs(sp / one - 1.0).max())
+            oracle_err = float(np.abs(pairhmm_ops.pairhmm_log10_from_raw_f64(sp[sample])
+                                      - want).max())
+            if not (rel <= 1e-12 and oracle_err <= 1e-9):
+                raise AssertionError(f"16a f64: max rel diff {rel:.3e} against one device, "
+                                     f"{oracle_err:.3e} in log10 against the oracle")
+            fields = dict(max_rel_diff_vs_one_device=rel, max_abs_log10_vs_oracle=oracle_err)
+        else:
+            err, below = compare_raw(torch.from_numpy(sp), torch.from_numpy(one),
+                                     "16a f32 sp vs one device", near=TOL_IN_RANGE)
+            in_range = sp[sample] >= MIN_ACCEPTED
+            oracle_err = float(np.abs(pairhmm_ops.pairhmm_log10_from_raw_f32(sp[sample])
+                                      - want)[in_range].max())
+            if not oracle_err <= TOL_ORACLE:
+                raise AssertionError(f"16a f32: {oracle_err:.3e} in log10 against the oracle")
+            fields = dict(max_abs_log10_vs_one_device=err, lanes_below_min_accepted=below,
+                          max_abs_log10_vs_oracle_in_range=oracle_err,
+                          oracle_lanes_in_range=int(in_range.sum()))
+        out[dtype] = sp
+        log("16a sequence_parallel", card=repr(card), dtype=dtype, shape=f"R{R}_H{H}_P{P}",
+            mesh=[str(d) for d in mesh.devices], distinct_cards=len(set(mesh.devices)),
+            deep_reads=int(deep[list(picked)].sum()), oracle_lanes=len(sample), **fields,
+            sp_wall_s=sp_s, one_device_wall_s=one_s)
+    return out
+
+
+def phase_raw_batch_f64(card, raw_12a):
+    """16b: ``PairHMM._raw_batch(packed, "float64")`` on phase 12a's batch
+    (R=128, H=224, P=2,048) on the card: a 256-lane slice against the same
+    call on the CPU (rtol 1e-12), a 256-lane sample against the native
+    oracle (1e-9 in log10), and its in-range lanes against 12a's f32 rows
+    kernel output (TOL_IN_RANGE in log10)."""
+    from gkl_tpu_torch import PairHMM
+    from gkl_tpu_torch import batch as batch_mod
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+    from gkl_tpu_torch.ops import pairhmm as pairhmm_ops
+    from gkl_tpu_torch.ops import pairhmm_cols, pairhmm_cuda
+
+    arrays = gatk_like_batch(128, 224, 2048)
+    packed = batch_mod.PackedPairs(*arrays, n_real=2048)
+    launches = pairhmm_cuda.LAUNCHES, pairhmm_cuda.ROWS_LAUNCHES, pairhmm_cols.LAUNCHES
+    raw, wall = synced_wall(lambda: PairHMM()._raw_batch(packed, "float64"))
+    if (pairhmm_cuda.LAUNCHES, pairhmm_cuda.ROWS_LAUNCHES, pairhmm_cols.LAUNCHES) != launches:
+        raise AssertionError("16b: _raw_batch in f64 launched an f32 kernel")
+    n = RAW_BATCH_CPU_LANES
+    head = batch_mod.PackedPairs(*(a[..., :n] for a in arrays), n_real=n)
+    t0 = time.perf_counter()
+    cpu = PairHMM(device="cpu")._raw_batch(head, "float64")
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.abs(raw[:n] / cpu - 1.0).max())
+    sample = np.arange(0, 2048, 2048 // n)
+    oracle_err = float(np.abs(pairhmm_ops.pairhmm_log10_from_raw_f64(raw[sample])
+                              - dense_oracle(packed, sample)).max())
+    in_range = raw_12a >= MIN_ACCEPTED
+    vs_rows = float(np.abs(pairhmm_ops.pairhmm_log10_from_raw_f64(raw)
+                           - pairhmm_ops.pairhmm_log10_from_raw_f32(raw_12a))[in_range].max())
+    log("16b raw_batch_float64", card=repr(card), shape="R128_H224_P2048", dtype=str(raw.dtype),
+        max_rel_diff_vs_cpu=rel, cpu_lanes=n, max_abs_log10_vs_oracle=oracle_err,
+        oracle_lanes=len(sample), max_abs_log10_vs_12a_rows_in_range=vs_rows,
+        lanes_in_range=int(in_range.sum()), card_wall_s=wall, cpu_wall_s=cpu_s)
+    if not (raw.dtype == np.float64 and rel <= 1e-12 and oracle_err <= 1e-9
+            and vs_rows <= TOL_IN_RANGE):
+        raise AssertionError(f"16b: {rel:.3e} against the CPU, {oracle_err:.3e} against the "
+                             f"oracle, {vs_rows:.3e} against 12a")
+
+
+def phase_observability(c, corpus_payload_head):
+    """16c: one ``run_region`` of phase 11's corpus under
+    ``profiling.trace`` with ``GKL_TPU_METRICS=1``: the trace file must
+    name the three kernels it launched, and ``METRICS.report()``'s rows go
+    on one line; then ``profile_csv`` of the corpus BAM's first 4 MiB of
+    payload at levels 1, 6 and 9 (host times)."""
+    import tempfile
+
+    import torch
+
+    from gkl_tpu_torch import PDHMM, PairHMM, SmithWaterman, profiling
+    from gkl_tpu_torch.ops import pairhmm_cuda, pdhmm_cuda, sw_cuda
+
+    host = host_fields()
+    default_rescue_policy()
+    os.environ["GKL_TPU_METRICS"] = "1"
+    profiling.METRICS.reset()
+    pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+    try:
+        with tempfile.TemporaryDirectory(prefix="gkl_tpu_torch_trace_") as tmp:
+            t0 = time.perf_counter()
+            with profiling.trace(tmp):
+                _, stage_s = run_region(c, PairHMM(), SmithWaterman(), PDHMM())
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            files = [os.path.join(tmp, f) for f in os.listdir(tmp)
+                     if f.endswith(".pt.trace.json")]
+            if len(files) != 1:
+                raise AssertionError(f"16c: the trace wrote {os.listdir(tmp)}")
+            trace_bytes = os.path.getsize(files[0])
+            named = dict.fromkeys(TRACE_KERNEL_NAMES, 0)
+            with open(files[0]) as fh:
+                for line in fh:  # one event a line
+                    for k, name in TRACE_KERNEL_NAMES.items():
+                        named[k] += name in line
+    finally:
+        os.environ.pop("GKL_TPU_METRICS")
+    launches = {"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
+                "pdhmm": pdhmm_cuda.LAUNCHES}
+    log("16c trace", trace_bytes=trace_bytes, **{f"launches_{k}": v for k, v in launches.items()},
+        **{f"trace_lines_naming_{k}": v for k, v in named.items()},
+        traced_stage_s=[round(x, 6) for x in stage_s], traced_wall_s=wall, **host)
+    if min(launches.values()) <= 0 or min(named.values()) <= 0:
+        raise AssertionError(f"16c: launches {launches}, kernel names in the trace {named}")
+    report = profiling.METRICS.report().splitlines()
+    print(f"[16c metrics_report] card={host['card']} "
+          + " | ".join(" ".join(row.split()) for row in report), flush=True)
+    if not any(row.split()[0] == "pairhmm" for row in report[1:]):
+        raise AssertionError(f"16c: no pairhmm row in the report: {report}")
+    csv = profiling.profile_csv(corpus_payload_head, levels=(1, 6, 9)).splitlines()
+    log("16c profile_csv", payload_bytes=len(corpus_payload_head), csv=" ".join(csv), **host)
+    if csv[0] != "level,ms,size,ratio" or len(csv) != 4:
+        raise AssertionError(f"16c: profile_csv gave {csv}")
+
+
+def phase_debug(c, region, card):
+    """16d: phase 11's corpus once under ``debug.debug_context()``: no NaN
+    check fires, and the outputs are phase 11's bit for bit."""
+    from gkl_tpu_torch import PDHMM, PairHMM, SmithWaterman, debug
+
+    default_rescue_policy()
+    with debug.debug_context():
+        outputs, stage_s = run_region(c, PairHMM(), SmithWaterman(), PDHMM())
+    differ = outputs_differ(outputs, region["outputs"])
+    log("16d debug_context", card=repr(card),
+        **{f"differ_from_phase11_{k}": v for k, v in differ.items()},
+        wall_s=sum(stage_s), stage_s=[round(x, 6) for x in stage_s],
+        phase11_wall_s_median_of_3=region["wall_s_median"])
+    if any(differ.values()):
+        raise AssertionError(f"16d: the run under debug_context differs from phase 11: {differ}")
+
+
+def phase_kernel_fuzz(card):
+    """16e: the seeded draws of ``tests/test_kernel_fuzz.py``
+    (``tests/torch_fuzz_cases.py``) through each CUDA kernel, each output
+    held against its kernel-order twin on the same card tensors."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_fuzz_cases
+
+    t0 = time.perf_counter()
+    differ = torch_fuzz_cases.kernel_lanes_differ(torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    per_kernel = {}
+    for key, n in differ.items():
+        name = key.split("/")[0]
+        cases, lanes = per_kernel.get(name, (0, 0))
+        per_kernel[name] = (cases + 1, lanes + n)
+    log("16e kernel_fuzz", card=repr(card),
+        **{f"{k}_cases": v[0] for k, v in per_kernel.items()},
+        **{f"{k}_lanes_differ": v[1] for k, v in per_kernel.items()}, wall_s=wall)
+    if len(per_kernel) != 5 or any(differ.values()):
+        raise AssertionError(f"16e: {({k: v for k, v in differ.items() if v})}")
+
+
+def phase_completion(c, region, raw_12a, corpus_payload_head):
+    """16: the modules that complete the port, each part on its own lines
+    with the card's name and power limit beside its times."""
+    card = card_and_power_limit()
+    phase_sequence_parallel(card)
+    phase_raw_batch_f64(card, raw_12a)
+    phase_observability(c, corpus_payload_head)
+    phase_debug(c, region, card)
+    phase_kernel_fuzz(card)
+
+
 def phase_profile():
     """``--profile``: the main path once to warm up, then once under
     ``torch.profiler``: each stage's wall time, the card's busy time (the
@@ -1916,8 +2191,9 @@ def main(argv) -> int:
     rows_timing, cols_timing, launches["pairhmm_rows"], raw_12a = phase_long_kernels()
     launches["pairhmm_cols"], path_err, long_lik = phase_long_region()
     cols_timing["max_abs_err"] = max(cols_timing["max_abs_err"], path_err)
-    phase_validation(corpus)
+    corpus_payload_head = phase_validation(corpus)
     phase_multi_device(corpus, region, long_lik, raw_12a)
+    phase_completion(corpus, region, raw_12a, corpus_payload_head)
     kernels = [
         ("pairhmm_scaled", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
         ("pairhmm_rows", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:268", rows_timing),

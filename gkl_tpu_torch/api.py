@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from . import batch as batch_mod
-from . import profiling, utils
+from . import debug, profiling, utils
 from .context import MIN_ACCEPTED
 from .ops import pairhmm as pairhmm_ops
 from .ops import pairhmm_cols, pairhmm_cuda, pairhmm_ref
@@ -256,34 +256,65 @@ class PairHMM:
             return ("scaled", idxs, pk, self._dispatch(pk, pairhmm_cuda.pairhmm_scaled))
         return ("f32", idxs, pk, self._dispatch(pk, pairhmm_cols.pairhmm_cols))
 
+    def _devices(self) -> tuple:
+        """The devices this engine's batches run on: the mesh's, or its own."""
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
     def _raw_batch(self, packed: batch_mod.PackedPairs, dtype: str = "float32") -> np.ndarray:
-        """Plain-f32 forward probabilities of a dense batch's real lanes:
-        the counterpart of ``gkl_tpu/api.py:372-498``, the rows kernel for
-        haplotype buckets up to PALLAS_MAX_HAP and the column kernel past
-        it, lane-sharded on the mesh as ``gkl_tpu/api.py:404-431``.  On one
-        device the dense planes go in as an indexed batch with ``ridx =
-        hidx = 0..P-1``.  Only float32: the port's f64 engine is the host
-        oracle (``_f64_lanes``)."""
+        """Forward probabilities of a dense batch's real lanes: the
+        counterpart of ``gkl_tpu/api.py:372-498``.
+
+        ``"float32"``: the plain-f32 rows kernel for haplotype buckets up
+        to PALLAS_MAX_HAP and the column kernel past it, lane-sharded on
+        the mesh as ``gkl_tpu/api.py:404-431``.  On one device the dense
+        planes go in as an indexed batch with ``ridx = hidx = 0..P-1``.
+
+        ``"float64"``: the plain engine ``ops.pairhmm.pairhmm_raw`` in f64
+        (the JAX package's jnp f64 engine, ``gkl_tpu/api.py:485-498``) on
+        the engine's device; the H100 runs f64 at full range, so nothing
+        moves to the host.  On a mesh it runs unsharded on the mesh's
+        first entry of this process, as the JAX package shards only
+        float32 (``gkl_tpu/api.py:404``).  The rescue (``_f64_lanes``)
+        stays on the native oracle, as in the JAX package."""
+        if dtype == "float64":
+            if self.mesh is not None:
+                local = self.mesh.local_entries()
+                if not local:
+                    raise ValueError("this process owns no entry of the mesh")
+                dev = local[0][1]
+            else:
+                dev = self.device
+            planes = [torch.from_numpy(np.ascontiguousarray(getattr(packed, f))).to(dev)
+                      for f in ("hap", "read", "q", "iq", "dq", "gcp", "haplen", "rslen")]
+            raw = pairhmm_ops.pairhmm_raw(*planes, dtype="float64")
+            return raw.cpu().numpy()[: packed.n_real]
         if dtype != "float32":
-            raise ValueError(f"_raw_batch runs float32 only, got {dtype!r}")
+            raise ValueError(f"_raw_batch runs float32 or float64, got {dtype!r}")
+        rows = packed.hap.shape[0] <= self.PALLAS_MAX_HAP
+        engine = debug.engine_name(*(("pairhmm_rows kernel", "pairhmm_raw twin") if rows else
+                                     ("pairhmm_cols kernel", "pairhmm_raw_cols twin")),
+                                   self._devices())
         if self.mesh is not None:
-            engine = (mesh_mod.pairhmm_raw_pallas_sharded
-                      if packed.hap.shape[0] <= self.PALLAS_MAX_HAP
-                      else mesh_mod.pairhmm_raw_pallas_cols_sharded)
-            return engine(self.mesh, packed)[: packed.n_real]
-        lanes = np.arange(packed.hap.shape[1], dtype=np.int32)
-        pk = batch_mod.PackedPairsIndexed(
-            packed.hap, np.stack([packed.read, packed.q]),
-            np.stack([packed.iq, packed.dq, packed.gcp]), None, lanes, lanes,
-            packed.haplen, packed.rslen, packed.n_real)
-        kernel = (pairhmm_cuda.pairhmm_rows if packed.hap.shape[0] <= self.PALLAS_MAX_HAP
-                  else pairhmm_cols.pairhmm_cols)
-        return self._dispatch(pk, kernel).wait()[: packed.n_real]
+            sharded = (mesh_mod.pairhmm_raw_pallas_sharded if rows
+                       else mesh_mod.pairhmm_raw_pallas_cols_sharded)
+            raw = sharded(self.mesh, packed)[: packed.n_real]
+        else:
+            lanes = np.arange(packed.hap.shape[1], dtype=np.int32)
+            pk = batch_mod.PackedPairsIndexed(
+                packed.hap, np.stack([packed.read, packed.q]),
+                np.stack([packed.iq, packed.dq, packed.gcp]), None, lanes, lanes,
+                packed.haplen, packed.rslen, packed.n_real)
+            kernel = pairhmm_cuda.pairhmm_rows if rows else pairhmm_cols.pairhmm_cols
+            raw = self._dispatch(pk, kernel).wait()[: packed.n_real]
+        debug.check_nan(raw, packed.n_real, engine)
+        return raw
 
     def _forward_raw_finalize(self, packed: batch_mod.PackedPairsIndexed, raw: np.ndarray):
         """log10 results of a plain-f32 batch and the lanes to rescue: every
         lane below MIN_ACCEPTED, as ``gkl_tpu/api.py:820-831``."""
         raw32 = np.asarray(raw, np.float32)[: packed.n_real]
+        debug.check_nan(raw32, packed.n_real, debug.engine_name(
+            "pairhmm_cols kernel", "pairhmm_raw_cols twin", self._devices()))
         return pairhmm_ops.pairhmm_log10_from_raw_f32(raw32), raw32 < MIN_ACCEPTED
 
     def _forward_scaled_finalize(self, pk, stacked: np.ndarray):
@@ -291,6 +322,8 @@ class PairHMM:
         its lanes for the host-f64 rescue.  Returns (log10 results, lanes
         to rescue)."""
         n = pk.n_real
+        debug.check_nan(stacked[0].view(np.float32), n, debug.engine_name(
+            "pairhmm_scaled kernel", "pairhmm_raw_scaled_reference twin", self._devices()))
         mant = stacked[0].view(np.float32)[:n].astype(np.float64)
         ex = stacked[1][:n].astype(np.float64)
         flag = stacked[2][:n]

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import batch as batch_mod
-from . import native_lib, profiling
+from . import debug, native_lib, profiling
 from .api import HaplotypeData, ReadData
 from .context import MIN_ACCEPTED, pdhmm_context
 from .ops import pdhmm as pdhmm_ops
@@ -126,6 +126,10 @@ class PDHMM:
         req = self.args.max_number_of_threads
         return cores if req <= 0 else min(req, cores)
 
+    def _devices(self) -> tuple:
+        """The devices this engine's batches run on: the mesh's, or its own."""
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
     def _run_indexed(self, haps, hap_pds, reads, quals):
         """One lane slice through the f32 engine: deduplicate the planes by
         object identity (the object path shares one array per read and per
@@ -150,11 +154,15 @@ class PDHMM:
         pk = batch_mod.pack_pdhmm_indexed(uh, uhpd, ur, urq, ridx, hidx,
                                           lane_multiple=self._lane_multiple)
         if self.mesh is not None:
-            return mesh_mod.dispatch_pdhmm(self.mesh, pk).wait()[:pk.n_real]
-        names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
-        dev = {k: torch.from_numpy(np.ascontiguousarray(getattr(pk, k))).to(self.device)
-               for k in names}
-        return pdhmm_cuda.pdhmm(**dev).cpu().numpy()[:pk.n_real]
+            raw = mesh_mod.dispatch_pdhmm(self.mesh, pk).wait()[:pk.n_real]
+        else:
+            names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
+            dev = {k: torch.from_numpy(np.ascontiguousarray(getattr(pk, k))).to(self.device)
+                   for k in names}
+            raw = pdhmm_cuda.pdhmm(**dev).cpu().numpy()[:pk.n_real]
+        debug.check_nan(raw, pk.n_real, debug.engine_name(
+            "pdhmm kernel", "pdhmm_indexed_reference twin", self._devices()))
+        return raw
 
     def _oracle(self, haps, hap_pds, reads, quals) -> np.ndarray:
         return pdhmm_ref.pdhmm_scalar_batch(haps, hap_pds, reads, quals,
@@ -169,7 +177,7 @@ class PDHMM:
         if self.args.use_double_precision or level == KernelLevel.SCALAR:
             out = self._oracle(haps, hap_pds, reads, quals)
         else:
-            devices = self.mesh.devices if self.mesh is not None else (self.device,)
+            devices = self._devices()
             if level == KernelLevel.PALLAS and any(d.type != "cuda" for d in devices):
                 # an explicit engine that cannot run raises, as the
                 # reference does for an unavailable AVX level

@@ -76,9 +76,12 @@ def lane_sum(a: torch.Tensor) -> torch.Tensor:
     return a.t().contiguous().sum(dim=1)
 
 
-def affine_scan(am: torch.Tensor, ae: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan of ``y[c] = 2^ae[c] * am[c] * y[c-1] + b[c]`` along
-    axis 0 (Hillis-Steele, log2(H) levels)."""
+def affine_scan(am: torch.Tensor, ae: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of the affine maps ``y -> 2^ae[c] * am[c] * y + b[c]``
+    along axis 0 (Hillis-Steele, log2(H) levels): entry ``c`` of the
+    result is the composition of maps 0..c, as (mantissa, exponent,
+    offset); the offsets are ``y[c] = 2^ae[c] * am[c] * y[c-1] + b[c]``
+    from ``y[-1] = 0``."""
     H = b.shape[0]
     one = torch.ones((1,) + tuple(am.shape[1:]), dtype=am.dtype, device=am.device)
     zero_e = torch.zeros((1,) + tuple(ae.shape[1:]), dtype=ae.dtype, device=ae.device)
@@ -89,7 +92,7 @@ def affine_scan(am: torch.Tensor, ae: torch.Tensor, b: torch.Tensor) -> torch.Te
                 _shift_down(b, k, zero_b))
         am, ae, b = _affine_combine(left, (am, ae, b))
         k <<= 1
-    return b
+    return am, ae, b
 
 
 def transition_rows(q, iq, dq, gcp, ctx, dtype, device):
@@ -157,7 +160,7 @@ def pairhmm_raw(hap, read, q, iq, dq, gcp, haplen, rslen, *,
         x_new = p_mx[r] * m + p_xx[r] * x
         b = p_my[r] * _shift_down(m_new, 1, zero_row)
         am, ae = _mant_exp(p_yy[r][None, :].expand(H, P))
-        y = affine_scan(am, ae, b)
+        y = affine_scan(am, ae, b)[2]
         m, x = m_new, x_new
         row_sum = lane_sum((m + x) * col_valid)
         acc = acc + torch.where(rslen == r + 1, row_sum, torch.zeros_like(row_sum))

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import context as ctx_mod
-from .. import cuda_build
+from .. import cuda_build, debug
 from .pairhmm import N_CODE, _shift_down, lane_sum, pairhmm_raw, transition_rows
 
 # Launches of the scaled instance and of the plain (rows) instance of the
@@ -437,6 +437,7 @@ def _launch(fn, hap_u, readq_u, ridx, hidx, haplen, rslen, const_quals, quals_u,
             out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+    debug.after_launch(device)
     return out
 
 

@@ -19,7 +19,7 @@ import functools
 import torch
 
 from .. import context as ctx_mod
-from .. import cuda_build
+from .. import cuda_build, debug
 from . import pdhmm as pdhmm_ops
 from .pairhmm_cuda import _check, _ftz
 
@@ -230,5 +230,6 @@ def pdhmm(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
             stream)
     if rc != 0:
         raise RuntimeError(f"pdhmm kernel launch failed: CUDA error {rc}")
+    debug.after_launch(device)
     LAUNCHES += 1
     return out

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import cuda_build
+from .. import cuda_build, debug
 from . import sw as sw_ops
 from .pairhmm_cuda import _check
 
@@ -96,6 +96,7 @@ def sw_forward(ref, alt, reflen, altlen, match, mismatch, gap_open, gap_extend, 
             rows_per_thread, stream)
     if rc != 0:
         raise RuntimeError(f"sw_forward kernel launch failed: CUDA error {rc}")
+    debug.after_launch(device)
     LAUNCHES += 1
     return bt, lastrow, lastcol
 

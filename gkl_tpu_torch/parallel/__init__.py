@@ -8,8 +8,10 @@ data-parallel over a ``dp`` mesh of CUDA devices, a shard per mesh entry
 since likelihood vectors are tiny next to the inputs.
 
 Every name of the JAX package's ``parallel`` is here.  Its
-sequence-parallel pair, ``sequence_parallel_mesh`` and ``pairhmm_raw_sp``
-(a jnp-only prototype that no API reaches), waits for a later slice.
+sequence-parallel pair, ``mesh.sequence_parallel_mesh`` and
+``mesh.pairhmm_raw_sp`` (a prototype that no API reaches: one batch's
+haplotype axis split over an ``sp`` mesh), stays out of ``__all__`` as it
+does there.
 """
 
 from .distributed import (

@@ -168,13 +168,16 @@ def test_native_oracle_matches_python():
 
 def test_port_imports_no_jax():
     """The port runs where JAX is not installed: importing it, its SW and
-    PDHMM APIs, their kernel wrappers, the codec, BAM and validation modules
-    and the pipelines must load neither jax nor gkl_tpu (a fresh interpreter, since this test process
+    PDHMM APIs, their kernel wrappers, the codec, BAM and validation modules,
+    debug, profiling, utils, the mesh and the pipelines must load neither
+    jax nor gkl_tpu (a fresh interpreter, since this test process
     already holds jax)."""
     code = ("import sys, gkl_tpu_torch, gkl_tpu_torch.cuda_build, gkl_tpu_torch.api_sw, "
             "gkl_tpu_torch.api_pdhmm, gkl_tpu_torch.ops.sw_cuda, "
             "gkl_tpu_torch.ops.pdhmm_cuda, gkl_tpu_torch.compression, "
-            "gkl_tpu_torch.compression.bgzf, gkl_tpu_torch.bam, gkl_tpu_torch.validation; "
+            "gkl_tpu_torch.compression.bgzf, gkl_tpu_torch.bam, gkl_tpu_torch.validation, "
+            "gkl_tpu_torch.debug, gkl_tpu_torch.profiling, gkl_tpu_torch.utils, "
+            "gkl_tpu_torch.parallel.mesh; "
             "from gkl_tpu_torch.pipeline import bam_recompress, region_stream, sw_align_stream; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gkl_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

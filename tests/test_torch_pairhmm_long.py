@@ -257,10 +257,32 @@ def test_raw_batch_matches_jax(monkeypatch, H, routed_to):
     np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
-def test_raw_batch_runs_float32_only():
+@pytest.mark.parametrize("H,route", [(24, "rows"), (40, "cols"), (40, "dp_mesh")])
+def test_raw_batch_float64_matches_jax(monkeypatch, H, route):
+    """``_raw_batch(packed, "float64")`` against the JAX package's (its jnp
+    f64 engine) at rtol 1e-12, on either side of PALLAS_MAX_HAP (32 here,
+    in both packages) and on a CPU dp mesh, where it runs unsharded on the
+    mesh's first entry: the plain f64 engine, and no f32 kernel wrapper."""
+    from gkl_tpu_torch import parallel
+
+    monkeypatch.setattr(PairHMM, "PALLAS_MAX_HAP", 32)
+    monkeypatch.setattr(gkl_tpu.PairHMM, "PALLAS_MAX_HAP", 32)
+    for mod, name in ((pairhmm_cuda, "pairhmm_rows"), (pairhmm_cols, "pairhmm_cols")):
+        monkeypatch.setattr(mod, name, lambda **kw: pytest.fail("an f32 wrapper ran"))
+    args = _batch(R=16, H=H, seed=H + 1)
+    jpk = jbatch.PackedPairs(*args, n_real=6)
+    want = np.asarray(gkl_tpu.PairHMM()._raw_batch(jpk, "float64"))
+    mesh = parallel.data_parallel_mesh(devices=["cpu"] * 2) if route == "dp_mesh" else None
+    got = PairHMM(device="cpu", mesh=mesh)._raw_batch(tbatch.from_reference(jpk), "float64")
+    assert got.dtype == want.dtype == np.float64 and got.shape == want.shape == (6,)
+    assert (want > 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_raw_batch_refuses_other_dtypes():
     args = _batch(R=8, H=16, seed=1)
-    with pytest.raises(ValueError, match="float32 only"):
-        PairHMM(device="cpu")._raw_batch(tbatch.PackedPairs(*args, n_real=8), "float64")
+    with pytest.raises(ValueError, match="float32 or float64"):
+        PairHMM(device="cpu")._raw_batch(tbatch.PackedPairs(*args, n_real=8), "float16")
 
 
 def _jax_reads(reads):
