@@ -123,6 +123,20 @@ before printing any result.  Phases, one line each (or a few):
     corpus under ``debug.debug_context()``, bit for bit phase 11's; (e) the
     seeded draws of ``tests/test_kernel_fuzz.py`` through each CUDA kernel,
     bit for bit its kernel-order twin (``tests/torch_fuzz_cases.py``).
+17. the names that close the port against ``gkl_tpu``, each line beside
+    the card's name and power limit: (a) phase 11's corpus through
+    ``run_region`` with the three engines built with ``lane_multiple`` 1,
+    3 and 128, three runs each: the first run's outputs bit for bit phase
+    11's with the same rescued lanes; launches, lazy PairHMM groups and the
+    median wall logged; (b) the corpus on a ``dp`` mesh of cuda:0 twice
+    with ``lane_multiple=256``, bit for bit phase 11's, and
+    ``lane_multiple=3`` on that mesh refused (``ValueError``) by each
+    constructor before any launch; (c) ``bam.parse_records_native`` on the
+    test BAM record for record against ``parse_records`` and the streaming
+    reader, ``try_parse_header`` and ``complete_records_end`` on phase 14's
+    corpus payload (its records held to phase 11's reads), and
+    ``bgzf.iter_decompressed`` from an open file byte for byte its result
+    from the path.
 
 ``python3 chip_smoke.py --profile`` runs phases 0-1 and then the main path
 under ``torch.profiler`` instead: stage times, the card's busy time and
@@ -2121,6 +2135,169 @@ def phase_completion(c, region, raw_12a, corpus_payload_head):
     phase_kernel_fuzz(card)
 
 
+PHASE17_LANE_MULTIPLES = (1, 3, 128)
+PHASE17_MESH_LANE_MULTIPLE = 256
+
+
+def run_counted(c, engines, runs=3):
+    """``run_region`` of corpus ``c`` on ``engines`` ``runs`` times: the
+    first run's outputs, launches per kernel, PairHMM groups left lazy by
+    the in-flight budget and rescued lanes, and the median wall."""
+    from gkl_tpu_torch import profiling
+    from gkl_tpu_torch.ops import pairhmm_cuda, pdhmm_cuda, sw_cuda
+
+    hmm = engines[0]
+    lazy = []
+    real_async = hmm.compute_likelihoods_async
+
+    def counting_async(reads, haps):
+        pending = real_async(reads, haps)
+        lazy.append(sum(w[0] == "lazy" for w in pending._work))
+        return pending
+
+    hmm.compute_likelihoods_async = counting_async
+    default_rescue_policy()
+    os.environ["GKL_TPU_METRICS"] = "1"
+    walls, first = [], None
+    try:
+        for k in range(runs):
+            profiling.METRICS.reset()
+            pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+            outputs, stage_s = run_region(c, *engines)
+            walls.append(sum(stage_s))
+            if k == 0:
+                m = profiling.METRICS.snapshot()
+                first = dict(
+                    outputs=outputs, lazy_groups=lazy[0],
+                    launches={"pairhmm_scaled": pairhmm_cuda.LAUNCHES,
+                              "sw_forward": sw_cuda.LAUNCHES, "pdhmm": pdhmm_cuda.LAUNCHES},
+                    pairhmm_rescued=m.get("pairhmm_rescue", {}).get("items", 0),
+                    pdhmm_rescued=m.get("pdhmm_rescue", {}).get("items", 0))
+    finally:
+        os.environ.pop("GKL_TPU_METRICS")
+        del hmm.compute_likelihoods_async
+    return dict(first, wall_s_median=float(np.median(walls)), walls_s=walls)
+
+
+def check_like_phase11(run, region, what):
+    """``run``'s first outputs bit for bit phase 11's, with the same lanes
+    rescued and every kernel of the path launched."""
+    differ = outputs_differ(run["outputs"], region["outputs"])
+    if any(differ.values()):
+        raise AssertionError(f"{what}: the outputs differ from phase 11's: {differ}")
+    if (run["pairhmm_rescued"], run["pdhmm_rescued"]) != (region["pairhmm_rescued"],
+                                                          region["pdhmm_rescued"]):
+        raise AssertionError(f"{what}: rescued {run['pairhmm_rescued']} / "
+                             f"{run['pdhmm_rescued']} lanes, phase 11 "
+                             f"{region['pairhmm_rescued']} / {region['pdhmm_rescued']}")
+    if min(run["launches"].values()) <= 0:
+        raise AssertionError(f"{what}: a kernel of the path did not run: {run['launches']}")
+    return differ
+
+
+def phase_lane_multiple(c, region, corpus_payload_head):
+    """17: the names that close the port against ``gkl_tpu``.  (a) Phase
+    11's corpus through ``run_region`` with the three engines built with
+    ``lane_multiple`` 1, 3 and 128, three runs each: the first run's
+    outputs bit for bit phase 11's with the same rescued lanes; launches,
+    lazy PairHMM groups and the median wall logged.  (b) The corpus on a
+    ``dp`` mesh of cuda:0 twice with ``lane_multiple=256``, bit for bit
+    phase 11's; ``lane_multiple=3`` on that mesh raises ``ValueError`` in
+    each constructor before any launch.  (c) ``bam.parse_records_native``
+    on the test BAM record for record against ``parse_records`` and the
+    streaming reader; ``try_parse_header`` and ``complete_records_end`` on
+    phase 14's corpus payload; ``bgzf.iter_decompressed`` from an open file
+    byte for byte its result from the path."""
+    from gkl_tpu_torch import PDHMM, PairHMM, SmithWaterman, bam, parallel
+    from gkl_tpu_torch.compression import bgzf
+    from gkl_tpu_torch.ops import pairhmm_cuda, pdhmm_cuda, sw_cuda
+
+    t_phase = time.perf_counter()
+    card = card_and_power_limit()
+    for lm in PHASE17_LANE_MULTIPLES:
+        run = run_counted(c, (PairHMM(lane_multiple=lm), SmithWaterman(lane_multiple=lm),
+                              PDHMM(lane_multiple=lm)))
+        differ = check_like_phase11(run, region, f"lane_multiple={lm}")
+        log("17a lane_multiple", card=repr(card), lane_multiple=lm,
+            **{f"launches_{k}": v for k, v in run["launches"].items()},
+            pairhmm_lazy_groups=run["lazy_groups"],
+            pairhmm_rescued_lanes=run["pairhmm_rescued"],
+            pdhmm_rescued_lanes=run["pdhmm_rescued"],
+            **{f"differ_from_phase11_{k}": v for k, v in differ.items()},
+            wall_s_median_of_3=run["wall_s_median"],
+            phase11_wall_s_median_of_3=region["wall_s_median"])
+
+    mesh = parallel.data_parallel_mesh(devices=["cuda:0", "cuda:0"])
+    lm = PHASE17_MESH_LANE_MULTIPLE
+    run = run_counted(c, (PairHMM(lane_multiple=lm, mesh=mesh),
+                          SmithWaterman(lane_multiple=lm, mesh=mesh),
+                          PDHMM(lane_multiple=lm, mesh=mesh)), runs=1)
+    differ = check_like_phase11(run, region, f"lane_multiple={lm} on a 2-entry mesh")
+    pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+    refused = []
+    for engine in (PairHMM, SmithWaterman, PDHMM):
+        try:
+            engine(lane_multiple=3, mesh=mesh)
+        except ValueError as err:
+            refused.append(str(err))
+    launched = pairhmm_cuda.LAUNCHES + sw_cuda.LAUNCHES + pdhmm_cuda.LAUNCHES
+    log("17b mesh_lane_multiple", card=repr(card), mesh=[str(d) for d in mesh.devices],
+        lane_multiple=lm, **{f"launches_{k}": v for k, v in run["launches"].items()},
+        pairhmm_lazy_groups=run["lazy_groups"],
+        pairhmm_rescued_lanes=run["pairhmm_rescued"],
+        pdhmm_rescued_lanes=run["pdhmm_rescued"],
+        **{f"differ_from_phase11_{k}": v for k, v in differ.items()},
+        wall_s=run["wall_s_median"], lane_multiple_3_refused=len(refused),
+        launches_while_refusing=launched, refusal=repr(refused[:1]))
+    if len(refused) != 3 or launched:
+        raise AssertionError(f"lane_multiple=3 on a 2-entry mesh: {len(refused)} of 3 engines "
+                             f"refused it, {launched} launches")
+
+    path = os.path.join(DATA, "HiSeq.1mb.1RG.2k_lines.bam")
+    with open(path, "rb") as fh:
+        payload = bytes(bgzf.decompress(fh.read()))
+    _, off = bam.parse_header(payload)
+    t0 = time.perf_counter()
+    native = bam.parse_records_native(payload, off, keep_raw=True)
+    native_s = time.perf_counter() - t0
+    _, streamed = bam.read_bam_streaming(path, read_size=1 << 15, keep_raw=True)
+    fields = ("name", "flag", "ref_id", "pos", "mapq", "cigar", "raw")
+    for other in (bam.parse_records(payload, off, keep_raw=True), list(streamed)):
+        if len(other) != len(native) or any(
+                tuple(getattr(a, f) for f in fields) != tuple(getattr(b, f) for f in fields)
+                or not (np.array_equal(a.seq, b.seq) and np.array_equal(a.qual, b.qual))
+                for a, b in zip(native, other)):
+            raise AssertionError("parse_records_native differs from another reader")
+    head = corpus_payload_head
+    parsed = bam.try_parse_header(head)
+    if parsed is None:
+        raise AssertionError("try_parse_header found no header in the corpus payload")
+    partial = bam.try_parse_header(head[:parsed[1] - 1])
+    end = bam.complete_records_end(head, parsed[1])
+    corpus_records = bam.parse_records_native(head[:end], parsed[1])
+    records_differ = sum(not (np.array_equal(r.seq, seq) and np.array_equal(r.qual, qual))
+                         for r, (seq, qual) in zip(corpus_records, c["reads"]))
+    with open(path, "rb") as fh:
+        from_file = b"".join(bgzf.iter_decompressed(fh, read_size=1 << 15))
+        left_open = not fh.closed
+    from_path = b"".join(bgzf.iter_decompressed(path, read_size=1 << 15))
+    log("17c bam_names", test_bam_records=len(native), parse_records_native_s=native_s,
+        corpus_payload_bytes=len(head), corpus_header_end=parsed[1],
+        corpus_header_one_byte_short=partial, corpus_complete_records_end=end,
+        corpus_records=len(corpus_records), corpus_records_differ_from_phase11=records_differ,
+        iter_decompressed_bytes=len(from_file), file_left_open=left_open,
+        seq_nibble=bam.SEQ_NIBBLE.tobytes().decode(),
+        phase17_s=time.perf_counter() - t_phase)
+    whole = len(head) < PROFILE_CSV_BYTES  # the head is the whole payload
+    if partial is not None or records_differ or not corpus_records or (
+            whole and (end, len(corpus_records)) != (len(head), len(c["reads"]))):
+        raise AssertionError(f"corpus payload: header ends at {parsed[1]}, records end at "
+                             f"{end} of {len(head)}, {len(corpus_records)} records, "
+                             f"{records_differ} differ from phase 11's reads")
+    if from_file != from_path or from_path != payload or not left_open:
+        raise AssertionError("iter_decompressed from an open file differs from the path")
+
+
 def phase_profile():
     """``--profile``: the main path once to warm up, then once under
     ``torch.profiler``: each stage's wall time, the card's busy time (the
@@ -2194,6 +2371,7 @@ def main(argv) -> int:
     corpus_payload_head = phase_validation(corpus)
     phase_multi_device(corpus, region, long_lik, raw_12a)
     phase_completion(corpus, region, raw_12a, corpus_payload_head)
+    phase_lane_multiple(corpus, region, corpus_payload_head)
     kernels = [
         ("pairhmm_scaled", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
         ("pairhmm_rows", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:268", rows_timing),

@@ -156,14 +156,19 @@ class PairHMM:
     _ASYNC_INFLIGHT_BYTES = 256 << 20
 
     def __init__(self, args: PairHMMNativeArguments | None = None, *,
-                 device: str | torch.device = "cuda", mesh: mesh_mod.Mesh | None = None):
-        """``mesh``: an optional ``parallel.Mesh``; every batch then shards
-        lane-wise over it, one launch per lane slab on the slab's device
-        (the OpenMP-over-pairs analogue), and lanes pad to a multiple of
-        ``8 * mesh.size``.  Without one, ``max_number_of_threads`` may build
-        a mesh of local CUDA devices (:meth:`initialize`)."""
+                 lane_multiple: int | None = None, device: str | torch.device = "cuda",
+                 mesh: mesh_mod.Mesh | None = None):
+        """``lane_multiple``: every packed group's lanes pad to a multiple
+        of it; None means ``batch.LANE_MULTIPLE * mesh.size`` (8 without a
+        mesh).  A value below 1, or one that does not split evenly over the
+        mesh, raises ``ValueError``.  ``mesh``: an optional
+        ``parallel.Mesh``; every batch then shards lane-wise over it, one
+        launch per lane slab on the slab's device (the OpenMP-over-pairs
+        analogue).  Without one, ``max_number_of_threads`` may build a
+        mesh of local CUDA devices (:meth:`initialize`)."""
         self.device = torch.device(device)
         self._user_mesh = mesh is not None
+        self._user_lane_multiple = lane_multiple
         self.mesh = mesh
         self.initialize(args or PairHMMNativeArguments())
 
@@ -188,14 +193,15 @@ class PairHMM:
         """Takes new arguments, as the reference's initializeNative does on
         every call (IntelPairHmm.cc:88-91): an auto-built mesh is rebuilt
         (or dropped) to match the new thread clamp; a mesh the caller
-        passed is never touched."""
+        passed is never touched.  The caller's ``lane_multiple`` is kept
+        and checked against the mesh (``ValueError`` before anything
+        changes); only the default follows the mesh's size."""
         mesh = self._mesh_from_thread_cap(args)
-        if not self._user_mesh:
-            self.mesh = mesh
-        self.args = args
-        # lanes split evenly over the shards: the JAX package's multiple
-        # off the TPU, so both packages pack the same lanes
-        self._lane_multiple = batch_mod.LANE_MULTIPLE * (self.mesh.size if self.mesh else 1)
+        if self._user_mesh:
+            mesh = self.mesh
+        lane_multiple = batch_mod.resolve_lane_multiple(self._user_lane_multiple,
+                                                        mesh.size if mesh else 1)
+        self.mesh, self.args, self._lane_multiple = mesh, args, lane_multiple
 
     def done(self) -> None:  # parity with IntelPairHmm.done()
         pass

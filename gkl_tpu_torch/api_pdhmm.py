@@ -94,15 +94,21 @@ class PDHMMNativeArguments:
 class PDHMM:
     """PDHMM forward-likelihood engine (IntelPDHMM).
 
-    ``mesh``: an optional ``parallel.Mesh``; the f32 lane slices then shard
-    lane-wise over it.  ``max_number_of_threads`` stays the f64 oracle's
-    host threads, as in the JAX package's PDHMM."""
+    ``lane_multiple``: each lane slice pads to a multiple of it, and the
+    memory budget slices in its units; None means ``batch.LANE_MULTIPLE *
+    mesh.size`` (8 without a mesh), and a value below 1 or one that does not
+    split evenly over the mesh raises ``ValueError``.  ``mesh``: an
+    optional ``parallel.Mesh``; the f32 lane slices then shard lane-wise
+    over it.  ``max_number_of_threads`` stays the f64 oracle's host
+    threads, as in the JAX package's PDHMM."""
 
     def __init__(self, args: PDHMMNativeArguments | None = None, *,
-                 device: str | torch.device = "cuda", mesh: mesh_mod.Mesh | None = None):
+                 lane_multiple: int | None = None, device: str | torch.device = "cuda",
+                 mesh: mesh_mod.Mesh | None = None):
+        self._lane_multiple = batch_mod.resolve_lane_multiple(lane_multiple,
+                                                              mesh.size if mesh else 1)
         self.device = torch.device(device)
         self.mesh = mesh
-        self._lane_multiple = batch_mod.LANE_MULTIPLE * (mesh.size if mesh else 1)
         self.initialize(args or PDHMMNativeArguments())
 
     def initialize(self, args: PDHMMNativeArguments) -> None:

@@ -169,19 +169,25 @@ class SmithWaterman:
     """Smith-Waterman aligner (IntelSmithWaterman).
 
     ``device`` runs the DP: CUDA by default, the plain twin for
-    ``device="cpu"``.  ``mesh``: an optional ``parallel.Mesh``; the DP then
+    ``device="cpu"``.  ``lane_multiple``: each launch's lanes pad to a
+    multiple of it, and the backtrack budget counts lanes in its units;
+    None means ``batch.LANE_MULTIPLE * mesh.size`` (8 without a mesh), and a
+    value below 1 or one that does not split evenly over the mesh raises
+    ``ValueError``.  ``mesh``: an optional ``parallel.Mesh``; the DP then
     shards lane-wise over it, and each process walks the CIGARs of its own
     lanes from its own backtrack shard.  ``threads`` caps the native
     scalar-aligner pool (default: ``GKL_TPU_THREADS`` or all cores, at most
     16)."""
 
-    def __init__(self, *, device: str | torch.device = "cuda", threads: int | None = None,
+    def __init__(self, *, lane_multiple: int | None = None,
+                 device: str | torch.device = "cuda", threads: int | None = None,
                  mesh: mesh_mod.Mesh | None = None):
         if threads is not None and threads < 1:
             raise ValueError("threads must be >= 1")
+        self._lane_multiple = batch_mod.resolve_lane_multiple(lane_multiple,
+                                                              mesh.size if mesh else 1)
         self.device = torch.device(device)
         self.mesh = mesh
-        self._lane_multiple = batch_mod.LANE_MULTIPLE * (mesh.size if mesh else 1)
         self._threads = threads
         self._native = _runtime()
 

@@ -26,6 +26,8 @@ import numpy as np
 from . import native_lib
 from .compression import bgzf
 
+# 4-bit seq nibble -> ASCII base (SAM spec: =ACMGRSVTWYHKDBN)
+SEQ_NIBBLE = np.frombuffer(b"=ACMGRSVTWYHKDBN", dtype=np.uint8)
 CIGAR_OPS = "MIDNSHP=X"
 
 FLAG_UNMAPPED = 0x4
@@ -86,7 +88,7 @@ def parse_header(payload) -> tuple[BamHeader, int]:
     return BamHeader(text, names, lengths), off
 
 
-def _try_parse_header(payload) -> tuple[BamHeader, int] | None:
+def try_parse_header(payload) -> tuple[BamHeader, int] | None:
     """parse_header, or None while the buffer is still too short."""
     n = len(payload)
     if n < 12:
@@ -134,12 +136,16 @@ def _scanner():
     return lib
 
 
-def parse_records(payload, offset: int, limit: int | None = None,
-                  keep_raw: bool = False) -> list[BamRecord]:
+def parse_records_native(payload, offset: int, limit: int | None = None,
+                         keep_raw: bool = False) -> list[BamRecord]:
     """Decode the alignment records of a decompressed BAM payload with the
-    native two-pass scanner: fixed fields, unpacked sequences and quals in
-    flat buffers.  Each record's seq/qual are views into shared buffers;
-    with ``keep_raw`` each record also keeps its original bytes."""
+    native two-pass scanner (``native/bam_scan.cc``): fixed fields,
+    unpacked sequences and quals in flat buffers.  Each record's seq/qual
+    are views into shared buffers; with ``keep_raw`` each record also keeps
+    its original bytes.  ``limit <= 0`` gives ``[]``; a truncated or
+    corrupt record raises ``ValueError``.  Unlike the JAX package's, it
+    never returns None: a scanner that fails to build raises, as every
+    native load of this package does."""
     if limit is not None and limit <= 0:
         return []
     lib = _scanner()
@@ -197,6 +203,11 @@ def parse_records(payload, offset: int, limit: int | None = None,
     return records
 
 
+# the JAX package's pure-Python record parser: here the native scanner
+# serves both names, and returns a list
+parse_records = parse_records_native
+
+
 def read_bam(path: str, limit: int | None = None, threads: int | None = None,
              keep_raw: bool = False) -> tuple[BamHeader, list[BamRecord]]:
     """Read a whole BAM file: (header, records)."""
@@ -207,7 +218,7 @@ def read_bam(path: str, limit: int | None = None, threads: int | None = None,
     return header, parse_records(payload, off, limit=limit, keep_raw=keep_raw)
 
 
-def _complete_records_end(buf, start: int) -> int:
+def complete_records_end(buf, start: int) -> int:
     """Offset just past the last complete alignment record in ``buf``."""
     off = start
     n = len(buf)
@@ -234,7 +245,7 @@ def read_bam_streaming(path: str, limit: int | None = None,
     off = 0
     for chunk in gen:
         buf += chunk
-        parsed = _try_parse_header(buf)
+        parsed = try_parse_header(buf)
         if parsed is not None:
             header, off = parsed
             break
@@ -247,7 +258,7 @@ def read_bam_streaming(path: str, limit: int | None = None,
 
         def drain():
             nonlocal buf, off, count
-            end = _complete_records_end(buf, off)
+            end = complete_records_end(buf, off)
             if end > off:
                 want = None if limit is None else limit - count
                 recs = parse_records(bytes(memoryview(buf)[off:end]), 0, limit=want,
@@ -275,7 +286,7 @@ def read_bam_streaming(path: str, limit: int | None = None,
 # Writing
 # ---------------------------------------------------------------------------
 
-_SEQ_CODE = {b: i for i, b in enumerate(b"=ACMGRSVTWYHKDBN")}
+_SEQ_CODE = {b: i for i, b in enumerate(SEQ_NIBBLE.tobytes())}
 _CIGAR_CODE = {op: i for i, op in enumerate(CIGAR_OPS)}
 
 

@@ -36,6 +36,23 @@ def bucket_lanes(n: int, lane_multiple: int = LANE_MULTIPLE) -> int:
     return max(lane_multiple, ((n + lane_multiple - 1) // lane_multiple) * lane_multiple)
 
 
+def resolve_lane_multiple(lane_multiple: int | None, shards: int = 1) -> int:
+    """The lane padding multiple of an engine whose batches split over
+    ``shards`` lane slabs (a mesh's size; 1 without one): the caller's
+    ``lane_multiple``, or ``LANE_MULTIPLE * shards`` when it is None.  A
+    value below 1, or one that does not split evenly over the shards,
+    raises ``ValueError``.  Any other value runs: the kernels mask ragged
+    lane counts, so nothing here needs the JAX package's 128-lane block."""
+    if lane_multiple is None:
+        return LANE_MULTIPLE * shards
+    if lane_multiple < 1:
+        raise ValueError(f"lane_multiple must be >= 1, got {lane_multiple}")
+    if lane_multiple % shards:
+        raise ValueError(f"lane_multiple {lane_multiple} does not split evenly over "
+                         f"{shards} shards")
+    return int(lane_multiple)
+
+
 @dataclasses.dataclass
 class PackedPairs:
     """Column-major (length, lane) padded arrays for one shape bucket."""
@@ -49,6 +66,13 @@ class PackedPairs:
     haplen: np.ndarray  # (P,) int32
     rslen: np.ndarray  # (P,) int32
     n_real: int  # lanes [0, n_real) are real pairs
+
+    def device_bytes(self) -> int:
+        """The dense batch's footprint while it is in flight, counted as
+        ``gkl_tpu/batch.py`` counts it: the (H + 5R, P) uint8 input planes
+        plus a (3, P) 4-byte result stack."""
+        P = self.hap.shape[1]
+        return (self.hap.shape[0] + 5 * self.read.shape[0]) * P + 12 * P
 
 
 def _pad_columns(seqs: Sequence[np.ndarray], length: int, lanes: int, fill: int) -> np.ndarray:

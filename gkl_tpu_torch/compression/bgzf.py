@@ -12,6 +12,7 @@ htsjdk's BlockCompressedOutputStream does.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -106,12 +107,16 @@ def decompress(data: bytes, threads: int | None = None) -> bytearray:
     return inflate_members(split_blocks(data), threads)
 
 
-def iter_decompressed(path: str, threads: int | None = None,
+def iter_decompressed(path_or_file, threads: int | None = None,
                       read_size: int = 4 << 20):
     """Stream-decompress a BGZF file in bounded memory: reads ``read_size``
     compressed bytes at a time, inflates each batch of complete members and
-    yields the decompressed chunks."""
-    with open(path, "rb") as fh:
+    yields the decompressed chunks.  ``path_or_file`` is a path (``str``,
+    ``bytes`` or ``os.PathLike``), which it opens and closes, or an open
+    binary file, which it reads and leaves open."""
+    opened = isinstance(path_or_file, (str, bytes, os.PathLike))
+    fh = open(path_or_file, "rb") if opened else path_or_file
+    try:
         rem = b""
         while True:
             data = fh.read(read_size)
@@ -124,6 +129,9 @@ def iter_decompressed(path: str, threads: int | None = None,
                 yield inflate_members(blocks, threads)
         if rem:
             raise ValueError("truncated BGZF stream (incomplete trailing member)")
+    finally:
+        if opened:
+            fh.close()
 
 
 def _frame(cdata: bytes, raw: bytes) -> bytes:

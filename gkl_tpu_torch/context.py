@@ -175,6 +175,9 @@ class PairHmmContext:
             self.INITIAL_CONSTANT = np.float64(np.ldexp(1.0, 1020))
             self.LOG10_INITIAL_CONSTANT = np.float64(np.log10(self.INITIAL_CONSTANT))
 
+    def set_mm_prob(self, ins_qual, del_qual):
+        return match_to_match_prob(ins_qual, del_qual, self.dtype)
+
 
 @functools.lru_cache(maxsize=None)
 def pairhmm_context(dtype: str) -> PairHmmContext:

@@ -89,8 +89,8 @@ def _span_coefficients(a: torch.Tensor, levels: int, fl):
     return out
 
 
-def pdhmm_raw(hap, hap_pd, states, read, q, iq, dq, gcp, haplen, rslen, *,
-              dtype: str = "float64") -> torch.Tensor:
+def pdhmm_raw(hap, hap_pd, states, read, q, iq, dq, gcp, haplen, rslen, boost_row=None,
+              boost_log2: float = 0.0, *, dtype: str = "float64") -> torch.Tensor:
     """Forward probability per lane, before the log and scaled by the
     context's INITIAL_CONDITION (2^120 in float32, 2^1020 in float64).
 
@@ -99,6 +99,12 @@ def pdhmm_raw(hap, hap_pd, states, read, q, iq, dq, gcp, haplen, rslen, *,
         :func:`column_states`.
       read, q, iq, dq, gcp: (R, P) uint8 (PDHMM takes quals up to 254).
       haplen, rslen: (P,) int32 true lengths.
+      boost_row, boost_log2: an optional per-lane rescale, the JAX
+        package's (``gkl_tpu/ops/pdhmm.py:106-137``): every transition that
+        carries row r-1 into row r is multiplied by ``2**boost_log2`` where
+        r is the lane's ``boost_row`` (1-based; a value past the read moves
+        nothing), which scales every row from there on by that power of
+        two; the caller subtracts ``boost_log2 * log10(2)`` from the log.
 
     In float32 every product is flushed to zero below the normal range, as
     the kernel (built with -ftz=true) and XLA do.  That cannot move a lane
@@ -127,6 +133,12 @@ def pdhmm_raw(hap, hap_pd, states, read, q, iq, dq, gcp, haplen, rslen, *,
     t_im = 1.0 - q2e[cm]
     t_dd = q2e[cm]
     t_ii = t_dd
+    if boost_row is not None:
+        rows = torch.arange(1, R + 1, device=dev)[:, None]
+        boost = torch.where(rows == torch.as_tensor(boost_row, device=dev).to(torch.int64),
+                            torch.tensor(2.0, dtype=f, device=dev) ** boost_log2,
+                            torch.tensor(1.0, dtype=f, device=dev))
+        t_mm, t_im, t_mi, t_ii = (t * boost for t in (t_mm, t_im, t_mi, t_ii))
     err = q2e[qm]
     p_match = 1.0 - err
     p_mis = err / 3.0
