@@ -1,0 +1,6 @@
+"""Microseconds a read spends in the benchmark's spans around the pdhmm call."""
+from bench_port.harness import readers
+
+
+def read(run):
+    return readers.span_us_per_read(run, "pdhmm")
