@@ -669,7 +669,6 @@ def phase_active_region():
     default_rescue_policy()
     os.environ["GKL_TPU_METRICS"] = "1"
     profiling.METRICS.reset()
-    pairhmm_cuda.LAUNCHES = 0
     pairhmm_cuda.pairhmm_scaled = timed(real_scaled, events)
     try:
         torch.cuda.synchronize()
@@ -1201,7 +1200,6 @@ def phase_region_corpus(c):
     runs = []
     for k in range(3):
         profiling.METRICS.reset()
-        pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
         if k == 0:
             sw_cuda.sw_forward, pdhmm_cuda.pdhmm = recording_sw, recording_pd
             pairhmm_cuda.pairhmm_scaled = timed(real_hmm, hmm_events)
@@ -1332,9 +1330,9 @@ def phase_long_kernels():
     arrays = gatk_like_batch(128, 224, 2048)
     (H, P), R = arrays[0].shape, arrays[1].shape[0]
     hap, read, q, iq, dq, gcp, haplen, rslen = (torch.from_numpy(a).to(dev) for a in arrays)
-    pc.ROWS_LAUNCHES = 0
+    rows_before = pc.ROWS_LAUNCHES
     raw = PairHMM()._raw_batch(batch_mod.PackedPairs(*arrays, n_real=P))
-    rows_launches = pc.ROWS_LAUNCHES
+    rows_launches = pc.ROWS_LAUNCHES - rows_before
     if rows_launches != 1:
         raise AssertionError(f"_raw_batch made {rows_launches} rows-kernel launches, not 1")
     lanes = torch.arange(P, dtype=torch.int32, device=dev)
@@ -1512,7 +1510,6 @@ def phase_long_region():
     os.environ["GKL_TPU_METRICS"] = "1"
     hmm = RecordingPairHMM()
     profiling.METRICS.reset()
-    pairhmm_cols.LAUNCHES = pairhmm_cuda.LAUNCHES = pairhmm_cuda.ROWS_LAUNCHES = 0
     pairhmm_cols.pairhmm_cols = recording_cols
     try:
         torch.cuda.synchronize()
@@ -1645,7 +1642,8 @@ def phase_validation(c):
             return call
 
         default_rescue_policy()
-        pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+        before = {"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
+                  "pdhmm": pdhmm_cuda.LAUNCHES}
         validation.build_corpus, validation.check_corpus = (wall("build_corpus"),
                                                             wall("check_corpus"))
         try:
@@ -1654,8 +1652,9 @@ def phase_validation(c):
         finally:
             validation.build_corpus = real["build_corpus"]
             validation.check_corpus = real["check_corpus"]
-        launches = {"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
-                    "pdhmm": pdhmm_cuda.LAUNCHES}
+        launches = {"pairhmm_scaled": pairhmm_cuda.LAUNCHES - before["pairhmm_scaled"],
+                    "sw_forward": sw_cuda.LAUNCHES - before["sw_forward"],
+                    "pdhmm": pdhmm_cuda.LAUNCHES - before["pdhmm"]}
         log("14a validation_run", **stats, bam_bytes=os.path.getsize(corpus_bam),
             build_corpus_s=seconds["build_corpus"], check_corpus_s=seconds["check_corpus"],
             **{f"launches_{k}": v for k, v in launches.items()}, **host)
@@ -1793,7 +1792,6 @@ def phase_multi_device(c, region, long_lik, raw_12a):
     runs = []
     for k in range(3):
         profiling.METRICS.reset()
-        pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
         mesh_mod.TRACE = [] if k == 0 else None
         try:
             outputs, stage_s = run_region(c, *engines)
@@ -1837,34 +1835,36 @@ def phase_multi_device(c, region, long_lik, raw_12a):
     # the long region (column kernel) and _raw_batch (rows kernel) sharded
     haps, reads, _ = long_region()
     rd, hd = to_read_data(reads), [HaplotypeData(h) for h in haps]
-    pairhmm_cols.LAUNCHES = pairhmm_cuda.LAUNCHES = pairhmm_cuda.ROWS_LAUNCHES = 0
+    cols_before, scaled_before = pairhmm_cols.LAUNCHES, pairhmm_cuda.LAUNCHES
     mesh_mod.TRACE = []
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = engines[0].compute_likelihoods(rd, hd).reshape(long_lik.shape)
         long_wall = time.perf_counter() - t0
-        cols_launches = pairhmm_cols.LAUNCHES
-        pairhmm_cuda.ROWS_LAUNCHES = 0
+        cols_launches = pairhmm_cols.LAUNCHES - cols_before
+        rows_before = pairhmm_cuda.ROWS_LAUNCHES
         arrays = gatk_like_batch(128, 224, 2048)
         raw = engines[0]._raw_batch(batch_mod.PackedPairs(*arrays, n_real=2048))
         torch.cuda.synchronize()
         trace = mesh_mod.TRACE
     finally:
         mesh_mod.TRACE = None
+    scaled_launches = pairhmm_cuda.LAUNCHES - scaled_before
+    rows_launches = pairhmm_cuda.ROWS_LAUNCHES - rows_before
     long_differ = int((got.view(np.int64) != long_lik.view(np.int64)).sum())
     raw_differ = int((raw.view(np.int32) != raw_12a.view(np.int32)).sum())
     log("15a mesh_long_and_rows", card=repr(card), long_region_lanes=got.size,
-        launches_pairhmm_cols=cols_launches, launches_pairhmm_scaled=pairhmm_cuda.LAUNCHES,
+        launches_pairhmm_cols=cols_launches, launches_pairhmm_scaled=scaled_launches,
         long_region_wall_s=long_wall, long_region_differ_from_phase13=long_differ,
-        raw_batch_launches_pairhmm_rows=pairhmm_cuda.ROWS_LAUNCHES,
+        raw_batch_launches_pairhmm_rows=rows_launches,
         raw_batch_differ_from_12a=raw_differ)
     print(json.dumps({"15a_long_and_rows_shards": shard_trace(trace)}), flush=True)
-    if long_differ or raw_differ or cols_launches < mesh.size or pairhmm_cuda.LAUNCHES:
+    if long_differ or raw_differ or cols_launches < mesh.size or scaled_launches:
         raise AssertionError(f"long region: {long_differ} lanes differ, {cols_launches} cols "
                              f"launches; _raw_batch: {raw_differ} lanes differ")
-    if pairhmm_cuda.ROWS_LAUNCHES != mesh.size:
-        raise AssertionError(f"_raw_batch made {pairhmm_cuda.ROWS_LAUNCHES} rows launches")
+    if rows_launches != mesh.size:
+        raise AssertionError(f"_raw_batch made {rows_launches} rows launches")
 
     # (b) the thread cap on this machine
     capped = PairHMM(PairHMMNativeArguments(max_number_of_threads=0))
@@ -2045,7 +2045,6 @@ def phase_observability(c, corpus_payload_head):
     default_rescue_policy()
     os.environ["GKL_TPU_METRICS"] = "1"
     profiling.METRICS.reset()
-    pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
     try:
         with tempfile.TemporaryDirectory(prefix="gkl_tpu_torch_trace_") as tmp:
             t0 = time.perf_counter()
@@ -2162,7 +2161,6 @@ def run_counted(c, engines, runs=3):
     try:
         for k in range(runs):
             profiling.METRICS.reset()
-            pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
             outputs, stage_s = run_region(c, *engines)
             walls.append(sum(stage_s))
             if k == 0:
@@ -2233,14 +2231,14 @@ def phase_lane_multiple(c, region, corpus_payload_head):
                           SmithWaterman(lane_multiple=lm, mesh=mesh),
                           PDHMM(lane_multiple=lm, mesh=mesh)), runs=1)
     differ = check_like_phase11(run, region, f"lane_multiple={lm} on a 2-entry mesh")
-    pairhmm_cuda.LAUNCHES = sw_cuda.LAUNCHES = pdhmm_cuda.LAUNCHES = 0
+    before = pairhmm_cuda.LAUNCHES + sw_cuda.LAUNCHES + pdhmm_cuda.LAUNCHES
     refused = []
     for engine in (PairHMM, SmithWaterman, PDHMM):
         try:
             engine(lane_multiple=3, mesh=mesh)
         except ValueError as err:
             refused.append(str(err))
-    launched = pairhmm_cuda.LAUNCHES + sw_cuda.LAUNCHES + pdhmm_cuda.LAUNCHES
+    launched = pairhmm_cuda.LAUNCHES + sw_cuda.LAUNCHES + pdhmm_cuda.LAUNCHES - before
     log("17b mesh_lane_multiple", card=repr(card), mesh=[str(d) for d in mesh.devices],
         lane_multiple=lm, **{f"launches_{k}": v for k, v in run["launches"].items()},
         pairhmm_lazy_groups=run["lazy_groups"],

@@ -206,21 +206,19 @@ class PairHMM:
     def done(self) -> None:  # parity with IntelPairHmm.done()
         pass
 
-    def _f64_lanes(self, pk, lanes) -> np.ndarray:
+    def _f64_lanes(self, pk, lanes, on: bool) -> np.ndarray:
         """Exact f64 log10 results for a lane subset, on the threaded native
         oracle over the compacted lanes: rescue work scales with
         ``len(lanes)``, not the packed group.  Recorded as the
-        ``pairhmm_rescue`` METRICS counter (items = lanes recomputed)."""
-        t0 = time.perf_counter()
+        ``pairhmm_rescue`` METRICS span (items = lanes recomputed)."""
         lanes = np.asarray(lanes, np.int64)
-        haps, reads, quals = _extract_lanes(pk, lanes)
-        res = pairhmm_ref.pairhmm_scalar_batch(haps, reads, quals,
-                                               threads=utils.default_host_threads())
-        if profiling.metrics_enabled():
-            cells = int(np.sum(pk.haplen[lanes].astype(np.int64)
-                               * pk.rslen[lanes].astype(np.int64)))
-            profiling.METRICS.record("pairhmm_rescue", items=len(lanes), cells=cells,
-                                     seconds=time.perf_counter() - t0)
+        with profiling.span("pairhmm_rescue", on, items=len(lanes)) as s:
+            haps, reads, quals = _extract_lanes(pk, lanes)
+            res = pairhmm_ref.pairhmm_scalar_batch(haps, reads, quals,
+                                                   threads=utils.default_host_threads())
+            if on:
+                s.cells = int(np.sum(pk.haplen[lanes].astype(np.int64)
+                                     * pk.rslen[lanes].astype(np.int64)))
         return res
 
     def _launch(self, arrays: dict, kernel) -> mesh_mod.Launch:
@@ -371,70 +369,77 @@ class PairHMM:
         the streaming pipeline's building block, so that chunk N+1's host
         work overlaps chunk N's device time.
         """
-        if reads is None or haplotypes is None:
-            raise TypeError("readDataArray/haplotypeDataArray is null")
-        if len(reads) == 0 or len(haplotypes) == 0:
-            raise ValueError("readDataArray/haplotypeDataArray is empty")
-        for rd in reads:
-            if rd.read_bases is None or len(rd.read_bases) == 0:
-                raise ValueError("read bases are null or empty")
-            if not (
-                len(rd.read_bases) == len(rd.read_quals) == len(rd.insertion_gop)
-                == len(rd.deletion_gop) == len(rd.overall_gcp)
-            ):
-                raise ValueError("read arrays must all have the read's length")
-        for hp in haplotypes:
-            if hp.haplotype_bases is None or len(hp.haplotype_bases) == 0:
-                raise ValueError("haplotype bases are null or empty")
-        nr, nh = len(reads), len(haplotypes)
-        t0 = time.perf_counter()
-        rlens = [len(rd.read_bases) for rd in reads]
-        hlens = [len(hp.haplotype_bases) for hp in haplotypes]
-        # sum over pairs of len_r * len_h over the full cross product
-        cells = sum(rlens) * sum(hlens)
+        on = profiling.metrics_enabled()
+        with profiling.span("pairhmm_pack", on):
+            if reads is None or haplotypes is None:
+                raise TypeError("readDataArray/haplotypeDataArray is null")
+            if len(reads) == 0 or len(haplotypes) == 0:
+                raise ValueError("readDataArray/haplotypeDataArray is empty")
+            for rd in reads:
+                if rd.read_bases is None or len(rd.read_bases) == 0:
+                    raise ValueError("read bases are null or empty")
+                if not (
+                    len(rd.read_bases) == len(rd.read_quals) == len(rd.insertion_gop)
+                    == len(rd.deletion_gop) == len(rd.overall_gcp)
+                ):
+                    raise ValueError("read arrays must all have the read's length")
+            for hp in haplotypes:
+                if hp.haplotype_bases is None or len(hp.haplotype_bases) == 0:
+                    raise ValueError("haplotype bases are null or empty")
+            nr, nh = len(reads), len(haplotypes)
+            t0 = time.perf_counter()  # the ``pairhmm`` counter's start
+            rlens = [len(rd.read_bases) for rd in reads]
+            hlens = [len(hp.haplotype_bases) for hp in haplotypes]
+            # sum over pairs of len_r * len_h over the full cross product
+            cells = sum(rlens) * sum(hlens)
 
-        if self.args.use_double_precision:
-            # the native oracle is the engine: exact f64 with gradual
-            # underflow, like the reference's double kernel
-            pairs = [(hp.haplotype_bases, rd.read_bases,
-                      (rd.read_quals, rd.insertion_gop, rd.deletion_gop, rd.overall_gcp))
-                     for rd in reads for hp in haplotypes]
-            return PendingLikelihoods(self, nr * nh, [("f64", None, pairs, None)], t0, cells)
+            if self.args.use_double_precision:
+                # the native oracle is the engine: exact f64 with gradual
+                # underflow, like the reference's double kernel
+                pairs = [(hp.haplotype_bases, rd.read_bases,
+                          (rd.read_quals, rd.insertion_gop, rd.deletion_gop, rd.overall_gcp))
+                         for rd in reads for hp in haplotypes]
+                return PendingLikelihoods(self, nr * nh, [("f64", None, pairs, None)], t0,
+                                          cells, on)
 
-        const_quals = _const_quals_of(reads)
+            const_quals = _const_quals_of(reads)
+            rgroups: dict = {}
+            for i, ln in enumerate(rlens):
+                rgroups.setdefault(batch_mod.bucket_length(ln), []).append(i)
+            hgroups: dict = {}
+            for j, ln in enumerate(hlens):
+                hgroups.setdefault(batch_mod.bucket_length(ln), []).append(j)
+            rsets = [(rids, [reads[i].read_bases for i in rids],
+                      [(reads[i].read_quals, reads[i].insertion_gop,
+                        reads[i].deletion_gop, reads[i].overall_gcp) for i in rids])
+                     for rids in rgroups.values()]
         lm = self._lane_multiple
-        rgroups: dict = {}
-        for i, ln in enumerate(rlens):
-            rgroups.setdefault(batch_mod.bucket_length(ln), []).append(i)
-        hgroups: dict = {}
-        for j, ln in enumerate(hlens):
-            hgroups.setdefault(batch_mod.bucket_length(ln), []).append(j)
         work = []
         inflight = 0
-        for rids in rgroups.values():
-            rq = [(reads[i].read_quals, reads[i].insertion_gop,
-                   reads[i].deletion_gop, reads[i].overall_gcp) for i in rids]
-            rbases = [reads[i].read_bases for i in rids]
+        for rids, rbases, rq in rsets:
             for hids in hgroups.values():
-                # on a mesh, the full-pattern layout cuts unique reads where
-                # the pair lanes are cut, when the group's nh divides the
-                # padded lanes (gkl_tpu/api.py:674-684)
-                nh_g = len(hids)
-                Pg = batch_mod.bucket_lanes(len(rids) * nh_g, lm)
-                full_pattern = (self.mesh is not None and Pg % nh_g == 0
-                                and (Pg // nh_g) % self.mesh.size == 0)
-                pk = batch_mod.pack_pairs_indexed(
-                    [haplotypes[j].haplotype_bases for j in hids], rbases, rq,
-                    lane_multiple=lm, const_quals=const_quals, full_pattern=full_pattern)
-                idxs = (np.asarray(rids, np.int64)[:, None] * nh
-                        + np.asarray(hids, np.int64)[None, :]).ravel()
-                est = pk.device_bytes()
-                if work and inflight + est > self._ASYNC_INFLIGHT_BYTES:
-                    work.append(("lazy", idxs, pk, None))
-                    continue
-                inflight += est
-                work.append(self._dispatch_group(idxs, pk))
-        return PendingLikelihoods(self, nr * nh, work, t0, cells)
+                with profiling.span("pairhmm_pack", on) as s:
+                    # on a mesh, the full-pattern layout cuts unique reads
+                    # where the pair lanes are cut, when the group's nh
+                    # divides the padded lanes (gkl_tpu/api.py:674-684)
+                    nh_g = len(hids)
+                    Pg = batch_mod.bucket_lanes(len(rids) * nh_g, lm)
+                    full_pattern = (self.mesh is not None and Pg % nh_g == 0
+                                    and (Pg // nh_g) % self.mesh.size == 0)
+                    pk = batch_mod.pack_pairs_indexed(
+                        [haplotypes[j].haplotype_bases for j in hids], rbases, rq,
+                        lane_multiple=lm, const_quals=const_quals, full_pattern=full_pattern)
+                    s.items = pk.n_real
+                    idxs = (np.asarray(rids, np.int64)[:, None] * nh
+                            + np.asarray(hids, np.int64)[None, :]).ravel()
+                    est = pk.device_bytes()
+                    if work and inflight + est > self._ASYNC_INFLIGHT_BYTES:
+                        work.append(("lazy", idxs, pk, None))
+                        continue
+                    inflight += est
+                with profiling.span("pairhmm_dispatch", on, items=pk.n_real):
+                    work.append(self._dispatch_group(idxs, pk))
+        return PendingLikelihoods(self, nr * nh, work, t0, cells, on)
 
     def compute_likelihoods(
         self,
@@ -460,18 +465,19 @@ class PendingLikelihoods:
     Resolving twice returns the same array.
     """
 
-    def __init__(self, hmm: PairHMM, n: int, work, t0: float, cells: int):
+    def __init__(self, hmm: PairHMM, n: int, work, t0: float, cells: int, on: bool):
         self._hmm = hmm
         self._n = n
         self._work = work
         self._t0 = t0
         self._cells = cells
+        self._on = on  # the dispatching call's metrics switch
         self._out: np.ndarray | None = None
 
     def result(self) -> np.ndarray:
         if self._out is not None:
             return self._out
-        hmm = self._hmm
+        hmm, on = self._hmm, self._on
         out = np.zeros(self._n, np.float64)
         work = list(self._work)
         for k in range(len(work)):
@@ -479,26 +485,30 @@ class PendingLikelihoods:
             # that its upload and kernel overlap the wait and rescue below
             for i in (k, k + 1):
                 if i < len(work) and work[i][0] == "lazy":
-                    work[i] = hmm._dispatch_group(*work[i][1:3])
+                    with profiling.span("pairhmm_dispatch", on, items=work[i][2].n_real):
+                        work[i] = hmm._dispatch_group(*work[i][1:3])
             kind, idxs, packed, launch = work[k]
             if kind == "f64":
                 haps, rds, quals = zip(*packed)
                 out[:] = pairhmm_ref.pairhmm_scalar_batch(
                     haps, rds, quals, threads=utils.default_host_threads())
                 continue
-            if kind == "scaled":
-                res, needs_rescue = hmm._forward_scaled_finalize(packed, launch.wait())
-            else:
-                res, needs_rescue = hmm._forward_raw_finalize(packed, launch.wait())
-            if np.any(needs_rescue):
-                # lane-granular rescue: only the selected lanes are
-                # compacted and recomputed in exact f64
-                lanes = np.nonzero(needs_rescue)[0]
-                res[lanes] = hmm._f64_lanes(packed, lanes)
-            out[idxs] = res
+            with profiling.span("pairhmm_wait", on, items=packed.n_real):
+                raw = launch.wait()
+            with profiling.span("pairhmm_finalize", on, items=packed.n_real):
+                if kind == "scaled":
+                    res, needs_rescue = hmm._forward_scaled_finalize(packed, raw)
+                else:
+                    res, needs_rescue = hmm._forward_raw_finalize(packed, raw)
+                if np.any(needs_rescue):
+                    # lane-granular rescue: only the selected lanes are
+                    # compacted and recomputed in exact f64
+                    lanes = np.nonzero(needs_rescue)[0]
+                    res[lanes] = hmm._f64_lanes(packed, lanes, on)
+                out[idxs] = res
         self._work = ()
         self._out = out
-        if profiling.metrics_enabled():
+        if on:
             profiling.METRICS.record(
                 "pairhmm", items=self._n, cells=self._cells,
                 seconds=time.perf_counter() - self._t0,

@@ -209,110 +209,119 @@ class SmithWaterman:
 
     def align_batch(self, refs: Sequence, alts: Sequence, parameters: SWParameters,
                     strategy) -> list[SWAlignerResult]:
-        if parameters is None:
-            raise TypeError("Parameter structure is null.")
-        if strategy is None:
-            raise TypeError("OverhangStrategy is null.")
-        strategy = OverhangStrategy(strategy)
-        if any(x is None for x in refs) or any(x is None for x in alts):
-            raise TypeError("Sequence is null.")
-        refs = [_as_u8(r) for r in refs]
-        alts = [_as_u8(a) for a in alts]
-        for r, a in zip(refs, alts):
-            if len(r) <= 0 or len(a) <= 0:
-                raise ValueError("Cannot align empty sequences")
-            if len(r) > MAX_SW_SEQUENCE_LENGTH or len(a) > MAX_SW_SEQUENCE_LENGTH:
+        on = profiling.metrics_enabled()
+        with profiling.span("sw_pack", on):
+            if parameters is None:
+                raise TypeError("Parameter structure is null.")
+            if strategy is None:
+                raise TypeError("OverhangStrategy is null.")
+            strategy = OverhangStrategy(strategy)
+            if any(x is None for x in refs) or any(x is None for x in alts):
+                raise TypeError("Sequence is null.")
+            refs = [_as_u8(r) for r in refs]
+            alts = [_as_u8(a) for a in alts]
+            for r, a in zip(refs, alts):
+                if len(r) <= 0 or len(a) <= 0:
+                    raise ValueError("Cannot align empty sequences")
+                if len(r) > MAX_SW_SEQUENCE_LENGTH or len(a) > MAX_SW_SEQUENCE_LENGTH:
+                    raise ValueError(
+                        f"Sequences exceed maximum length of {MAX_SW_SEQUENCE_LENGTH} bytes")
+            if parameters.match_value > MAXIMUM_SW_MATCH_VALUE:
                 raise ValueError(
-                    f"Sequences exceed maximum length of {MAX_SW_SEQUENCE_LENGTH} bytes")
-        if parameters.match_value > MAXIMUM_SW_MATCH_VALUE:
-            raise ValueError(
-                f"Match value parameter exceeds maximum value of {MAXIMUM_SW_MATCH_VALUE}")
+                    f"Match value parameter exceeds maximum value of {MAXIMUM_SW_MATCH_VALUE}")
 
-        metrics_on = profiling.metrics_enabled()
-        t0 = time.perf_counter()
-        out: list[SWAlignerResult | None] = [None] * len(refs)
-        groups: dict[tuple[int, int], list[int]] = {}
-        scalar_idx = []
-        for k in range(len(refs)):
-            if self._device_eligible(len(refs[k]), len(alts[k]), self._lane_multiple):
-                key = (batch_mod.bucket_length(len(refs[k])),
-                       batch_mod.bucket_length(len(alts[k])))
-                groups.setdefault(key, []).append(k)
-            else:
-                scalar_idx.append(k)
+            t0 = time.perf_counter()  # the ``smithwaterman`` counter's start
+            out: list[SWAlignerResult | None] = [None] * len(refs)
+            groups: dict[tuple[int, int], list[int]] = {}
+            scalar_idx = []
+            for k in range(len(refs)):
+                if self._device_eligible(len(refs[k]), len(alts[k]), self._lane_multiple):
+                    key = (batch_mod.bucket_length(len(refs[k])),
+                           batch_mod.bucket_length(len(alts[k])))
+                    groups.setdefault(key, []).append(k)
+                else:
+                    scalar_idx.append(k)
+            merged = merge_shape_groups(groups)
 
         lm = self._lane_multiple
-        for (N, M), idxs in merge_shape_groups(groups):
+        for (N, M), idxs in merged:
             # lane chunks within the backtrack budget, in lane-padding units
             max_lanes = max(lm, (SW_BT_BUDGET // ((N // 2) * M)) // lm * lm)
             for s0 in range(0, len(idxs), max_lanes):
                 chunk = idxs[s0:s0 + max_lanes]
                 for k, res in zip(chunk, self._align_device(
                         N, M, [refs[k] for k in chunk], [alts[k] for k in chunk],
-                        parameters, strategy, metrics_on)):
+                        parameters, strategy, on)):
                     out[k] = res
 
         if scalar_idx:
-            for k, res in zip(scalar_idx, sw_align_scalar_batch(
-                    [refs[k] for k in scalar_idx], [alts[k] for k in scalar_idx],
-                    parameters, strategy, self._threads)):
-                out[k] = res
+            with profiling.span("sw_scalar", on, items=len(scalar_idx)):
+                for k, res in zip(scalar_idx, sw_align_scalar_batch(
+                        [refs[k] for k in scalar_idx], [alts[k] for k in scalar_idx],
+                        parameters, strategy, self._threads)):
+                    out[k] = res
 
-        if metrics_on:
+        if on:
             profiling.METRICS.record(
                 "smithwaterman", items=len(refs),
                 cells=sum(len(r) * len(a) for r, a in zip(refs, alts)),
                 seconds=time.perf_counter() - t0)
         return out  # type: ignore[return-value]
 
-    def _align_device(self, N, M, refs, alts, p: SWParameters, strategy, metrics_on):
+    def _align_device(self, N, M, refs, alts, p: SWParameters, strategy, on: bool):
         """One launch over a lane chunk (one a lane slab on the mesh): pack,
         run the DP on the device, bring the backtrack to the host and walk
-        each lane's CIGAR there."""
-        P = batch_mod.bucket_lanes(len(refs), self._lane_multiple)
-        ref_a = np.zeros((N, P), np.uint8)
-        alt_a = np.ones((M, P), np.uint8)  # pad bases never match the ref's 0
-        reflen = np.ones(P, np.int32)
-        altlen = np.ones(P, np.int32)
-        for c, (r, a) in enumerate(zip(refs, alts)):
-            ref_a[:len(r), c] = r
-            alt_a[:len(a), c] = a
-            reflen[c] = len(r)
-            altlen[c] = len(a)
-        indel = strategy in (OverhangStrategy.INDEL, OverhangStrategy.LEADING_INDEL)
+        each lane's CIGAR there.  On a mesh ``launch.wait()`` also brings
+        the slabs to the host, and ``sw_wait`` holds it; ``sw_bt_copy``
+        then covers the lane selection and the transpose."""
+        with profiling.span("sw_pack", on, items=len(refs)):
+            P = batch_mod.bucket_lanes(len(refs), self._lane_multiple)
+            ref_a = np.zeros((N, P), np.uint8)
+            alt_a = np.ones((M, P), np.uint8)  # pad bases never match the ref's 0
+            reflen = np.ones(P, np.int32)
+            altlen = np.ones(P, np.int32)
+            for c, (r, a) in enumerate(zip(refs, alts)):
+                ref_a[:len(r), c] = r
+                alt_a[:len(a), c] = a
+                reflen[c] = len(r)
+                altlen[c] = len(a)
+            indel = strategy in (OverhangStrategy.INDEL, OverhangStrategy.LEADING_INDEL)
         if self.mesh is not None:
-            # this process's lanes only: the backtrack never crosses processes
-            launch = mesh_mod.dispatch_sw(self.mesh, ref_a, alt_a, reflen, altlen, p,
-                                          indel_boundary=indel, gather=False)
-            t0 = time.perf_counter()
-            bt, lastrow, lastcol = launch.wait()
-            lanes = mesh_mod.local_lanes(self.mesh, P)
+            with profiling.span("sw_dispatch", on, items=len(refs)):
+                # this process's lanes only: the backtrack never crosses processes
+                launch = mesh_mod.dispatch_sw(self.mesh, ref_a, alt_a, reflen, altlen, p,
+                                              indel_boundary=indel, gather=False)
+            with profiling.span("sw_wait", on, items=len(refs)):
+                bt, lastrow, lastcol = launch.wait()
+            with profiling.span("sw_bt_copy", on) as copy:
+                lanes = mesh_mod.local_lanes(self.mesh, P)
+                # bt (P, N/2, M) and lastcol (P, N) are lane-major; lastrow (M, P)
+                lastrow_t = np.ascontiguousarray(lastrow.T)
+                copy.items = bt.nbytes
         else:
             dev = self.device
-            args = [torch.from_numpy(x).to(dev) for x in (ref_a, alt_a, reflen, altlen)]
-            bt, lastrow, lastcol = sw_cuda.sw_forward(
-                *args, p.match_value, p.mismatch_penalty, p.gap_open_penalty,
-                p.gap_extend_penalty, indel_boundary=indel)
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
-            t0 = time.perf_counter()
-            bt, lastrow, lastcol = (t.cpu().numpy() for t in (bt, lastrow, lastcol))
-            lanes = slice(0, P)
-        # bt (P, N/2, M) and lastcol (P, N) are lane-major; lastrow (M, P)
-        lastrow_t = np.ascontiguousarray(lastrow.T)
-        t1 = time.perf_counter()
-        res = [self._postprocess(bt[c], int(reflen[k]), int(altlen[k]), lastrow_t[c],
-                                 lastcol[c], strategy)
-               for c, k in enumerate(range(lanes.start, min(lanes.stop, len(refs))))]
-        if self.mesh is not None and mesh_mod.is_multiprocess(self.mesh):
-            # every process's walked lanes, in rank (= lane) order
-            parts = [None] * mesh_mod.process_count()
-            torch.distributed.all_gather_object(parts, res)
-            res = [r for part in parts for r in part]
-        if metrics_on:
-            profiling.METRICS.record("sw_bt_copy", items=bt.nbytes, seconds=t1 - t0)
-            profiling.METRICS.record("sw_host_walk", items=len(refs),
-                                     seconds=time.perf_counter() - t1)
+            with profiling.span("sw_dispatch", on, items=len(refs)):
+                args = [torch.from_numpy(x).to(dev) for x in (ref_a, alt_a, reflen, altlen)]
+                bt, lastrow, lastcol = sw_cuda.sw_forward(
+                    *args, p.match_value, p.mismatch_penalty, p.gap_open_penalty,
+                    p.gap_extend_penalty, indel_boundary=indel)
+            with profiling.span("sw_wait", on, items=len(refs)):
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+            with profiling.span("sw_bt_copy", on) as copy:
+                bt, lastrow, lastcol = (t.cpu().numpy() for t in (bt, lastrow, lastcol))
+                lanes = slice(0, P)
+                lastrow_t = np.ascontiguousarray(lastrow.T)
+                copy.items = bt.nbytes
+        with profiling.span("sw_host_walk", on, items=len(refs)):
+            res = [self._postprocess(bt[c], int(reflen[k]), int(altlen[k]), lastrow_t[c],
+                                     lastcol[c], strategy)
+                   for c, k in enumerate(range(lanes.start, min(lanes.stop, len(refs))))]
+            if self.mesh is not None and mesh_mod.is_multiprocess(self.mesh):
+                # every process's walked lanes, in rank (= lane) order
+                parts = [None] * mesh_mod.process_count()
+                torch.distributed.all_gather_object(parts, res)
+                res = [r for part in parts for r in part]
         return res
 
     def _postprocess(self, bt_packed, n, m, lastrow, lastcol, strategy) -> SWAlignerResult:

@@ -232,54 +232,77 @@ def complete_records_end(buf, start: int) -> int:
     return off
 
 
+class RecordDecoder:
+    """Decompressed BAM bytes in, records out: :meth:`feed` takes the next
+    decompressed chunk and returns the records it completes (the header
+    first goes to :attr:`header`); records may span chunks, so a rolling
+    buffer carries partial tails.  At most ``limit`` records come out, then
+    :attr:`done` is true; :meth:`finish` checks that the stream ended
+    whole."""
+
+    def __init__(self, limit: int | None = None, keep_raw: bool = False):
+        self.limit, self.keep_raw = limit, keep_raw
+        self.header: BamHeader | None = None
+        self.count = 0
+        self._buf = bytearray()
+        self._off = 0
+
+    @property
+    def done(self) -> bool:
+        return self.limit is not None and self.count >= self.limit
+
+    def feed(self, chunk) -> list[BamRecord]:
+        self._buf += chunk
+        if self.header is None:
+            parsed = try_parse_header(self._buf)
+            if parsed is None:
+                return []
+            self.header, self._off = parsed
+        end = complete_records_end(self._buf, self._off)
+        if end <= self._off:
+            return []
+        want = None if self.limit is None else self.limit - self.count
+        recs = parse_records(bytes(memoryview(self._buf)[self._off:end]), 0, limit=want,
+                             keep_raw=self.keep_raw)
+        self.count += len(recs)
+        del self._buf[:end]
+        self._off = 0
+        return recs
+
+    def finish(self) -> None:
+        if self.header is None:
+            raise ValueError("truncated BAM header")
+        if self._off < len(self._buf):
+            raise ValueError("truncated BAM record at end of stream")
+
+
 def read_bam_streaming(path: str, limit: int | None = None,
                        threads: int | None = None, read_size: int = 4 << 20,
                        keep_raw: bool = False):
     """Streaming form of :func:`read_bam`: returns (header, record iterator)
     with host memory bounded by ``read_size`` of compressed input plus one
-    decode window; records may span BGZF blocks, so a rolling buffer
-    carries partial tails."""
+    decode window (:class:`RecordDecoder`)."""
     gen = bgzf.iter_decompressed(path, threads=threads, read_size=read_size)
-    buf = bytearray()
-    header = None
-    off = 0
+    dec = RecordDecoder(limit, keep_raw)
+    first: list[BamRecord] = []
     for chunk in gen:
-        buf += chunk
-        parsed = try_parse_header(buf)
-        if parsed is not None:
-            header, off = parsed
+        first = dec.feed(chunk)
+        if dec.header is not None:
             break
-    if header is None:
+    if dec.header is None:
         raise ValueError("truncated BAM header")
 
     def records():
-        nonlocal buf, off
-        count = 0
-
-        def drain():
-            nonlocal buf, off, count
-            end = complete_records_end(buf, off)
-            if end > off:
-                want = None if limit is None else limit - count
-                recs = parse_records(bytes(memoryview(buf)[off:end]), 0, limit=want,
-                                     keep_raw=keep_raw)
-                count += len(recs)
-                del buf[:end]
-                off = 0
-                yield from recs
-
-        yield from drain()
-        if limit is not None and count >= limit:
+        yield from first
+        if dec.done:
             return
         for chunk in gen:
-            buf += chunk
-            yield from drain()
-            if limit is not None and count >= limit:
+            yield from dec.feed(chunk)
+            if dec.done:
                 return
-        if off < len(buf):
-            raise ValueError("truncated BAM record at end of stream")
+        dec.finish()
 
-    return header, records()
+    return dec.header, records()
 
 
 # ---------------------------------------------------------------------------

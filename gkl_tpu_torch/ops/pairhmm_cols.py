@@ -17,12 +17,12 @@ from __future__ import annotations
 import torch
 
 from .. import context as ctx_mod
-from .. import cuda_build
+from .. import cuda_build, profiling
 from .pairhmm import N_CODE, _shift_down, transition_rows
 from .pairhmm_cuda import _check_indexed, _ftz, _launch, expand_indexed_planes
 
-# Launches of the CUDA kernel in this process.
-LAUNCHES = 0
+# LAUNCHES: launches of the CUDA kernel in this process
+__getattr__ = profiling.launch_counts(__name__, LAUNCHES="pairhmm_cols")
 
 # The kernel's instances: read rows each of a lane's 32 threads holds.
 ROWS_PER_THREAD = (4, 8, 16)
@@ -141,7 +141,6 @@ def pairhmm_cols(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     planes; CUDA tensors launch the kernel's instance for the read bucket
     R (:func:`cols_geometry`; a malformed lane gets NaN).
     """
-    global LAUNCHES
     H, nu_h, R, nu_r, P = _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen,
                                          const_quals, quals_u)
     if hap_u.device.type == "cpu":
@@ -154,5 +153,5 @@ def pairhmm_cols(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     out = torch.empty(P, dtype=torch.float32, device=hap_u.device)
     _launch(lib.gkl_pairhmm_cols, hap_u, readq_u, ridx, hidx, haplen, rslen,
             const_quals, quals_u, H, nu_h, R, nu_r, P, out, rows_per_thread)
-    LAUNCHES += 1
+    profiling.METRICS.launch("pairhmm_cols")
     return out

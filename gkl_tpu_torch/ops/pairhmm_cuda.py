@@ -27,13 +27,13 @@ import numpy as np
 import torch
 
 from .. import context as ctx_mod
-from .. import cuda_build, debug
+from .. import cuda_build, debug, profiling
 from .pairhmm import N_CODE, _shift_down, lane_sum, pairhmm_raw, transition_rows
 
-# Launches of the scaled instance and of the plain (rows) instance of the
-# CUDA kernel in this process.
-LAUNCHES = 0
-ROWS_LAUNCHES = 0
+# LAUNCHES and ROWS_LAUNCHES: launches of the scaled instance and of the
+# plain (rows) instance of the CUDA kernel in this process
+__getattr__ = profiling.launch_counts(__name__, LAUNCHES="pairhmm_scaled",
+                                      ROWS_LAUNCHES="pairhmm_rows")
 
 _MAX_SUBNORMAL = 2.0 ** -126 - 2.0 ** -149  # largest f32 subnormal
 _M2M_ENTRIES = 128 * 129 // 2  # match-to-match cache entries for quals <= 127
@@ -459,7 +459,6 @@ def pairhmm_scaled(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     the kernel (a lane with out-of-range indices or lengths gets a NaN
     mantissa and flag -1).
     """
-    global LAUNCHES
     H, nu_h, R, nu_r, P = _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen,
                                          const_quals, quals_u)
     if R % 8:
@@ -475,7 +474,7 @@ def pairhmm_scaled(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     out = torch.empty((3, P), dtype=torch.int32, device=device)
     _launch(lib.gkl_pairhmm_scaled, hap_u, readq_u, ridx, hidx, haplen, rslen,
             const_quals, quals_u, H, nu_h, R, nu_r, P, out)
-    LAUNCHES += 1
+    profiling.METRICS.launch("pairhmm_scaled")
     return out
 
 
@@ -491,7 +490,6 @@ def pairhmm_rows(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     that twin on the expanded planes; CUDA tensors launch the kernel's
     plain instance (a malformed lane gets NaN).
     """
-    global ROWS_LAUNCHES
     H, nu_h, R, nu_r, P = _check_indexed(hap_u, readq_u, ridx, hidx, haplen, rslen,
                                          const_quals, quals_u)
     if hap_u.device.type == "cpu":
@@ -503,7 +501,7 @@ def pairhmm_rows(hap_u, readq_u, ridx, hidx, haplen, rslen, *,
     out = torch.empty(P, dtype=torch.float32, device=hap_u.device)
     _launch(lib.gkl_pairhmm_rows, hap_u, readq_u, ridx, hidx, haplen, rslen,
             const_quals, quals_u, H, nu_h, R, nu_r, P, out)
-    ROWS_LAUNCHES += 1
+    profiling.METRICS.launch("pairhmm_rows")
     return out
 
 

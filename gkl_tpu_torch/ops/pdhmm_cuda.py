@@ -19,12 +19,12 @@ import functools
 import torch
 
 from .. import context as ctx_mod
-from .. import cuda_build, debug
+from .. import cuda_build, debug, profiling
 from . import pdhmm as pdhmm_ops
 from .pairhmm_cuda import _check, _ftz
 
-# Launches of the CUDA kernel in this process.
-LAUNCHES = 0
+# LAUNCHES: launches of the CUDA kernel in this process
+__getattr__ = profiling.launch_counts(__name__, LAUNCHES="pdhmm")
 
 # The kernel's instances: read rows each of a lane's 32 threads holds.
 ROWS_PER_THREAD = (2, 4, 8)
@@ -195,7 +195,6 @@ def pdhmm(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
     (:func:`boundary_bytes_per_lane`) are allocated only when R needs more
     than one pass.
     """
-    global LAUNCHES
     device = hap_u.device
     _check("hap_u", hap_u, torch.uint8, 2, device)
     _check("happd_u", happd_u, torch.uint8, 2, device)
@@ -231,5 +230,5 @@ def pdhmm(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"pdhmm kernel launch failed: CUDA error {rc}")
     debug.after_launch(device)
-    LAUNCHES += 1
+    profiling.METRICS.launch("pdhmm")
     return out

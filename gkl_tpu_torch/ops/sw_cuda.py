@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from .. import cuda_build, debug
+from .. import cuda_build, debug, profiling
 from . import sw as sw_ops
 from .pairhmm_cuda import _check
 
-# Launches of the CUDA kernel in this process.
-LAUNCHES = 0
+# LAUNCHES: launches of the CUDA kernel in this process
+__getattr__ = profiling.launch_counts(__name__, LAUNCHES="sw_forward")
 
 # The kernel's instances: reference rows each of a lane's 32 threads holds
 # (even, so that a thread owns whole bt bytes).
@@ -58,7 +58,6 @@ def sw_forward(ref, alt, reflen, altlen, match, mismatch, gap_open, gap_extend, 
     elsewhere; the twin fills every cell.  A lane with a length out of
     range gets nothing.
     """
-    global LAUNCHES
     device = ref.device
     _check("ref", ref, torch.uint8, 2, device)
     _check("alt", alt, torch.uint8, 2, device)
@@ -97,7 +96,7 @@ def sw_forward(ref, alt, reflen, altlen, match, mismatch, gap_open, gap_extend, 
     if rc != 0:
         raise RuntimeError(f"sw_forward kernel launch failed: CUDA error {rc}")
     debug.after_launch(device)
-    LAUNCHES += 1
+    profiling.METRICS.launch("sw_forward")
     return bt, lastrow, lastcol
 
 

@@ -3,8 +3,8 @@
 Counterpart of ``gkl_tpu/pipeline.py``:
 
 1. a producer thread inflates BGZF blocks on the native codec and decodes
-   and filters records (``bam.read_bam_streaming``) into chunks on a
-   bounded queue;
+   and filters records (``bgzf.iter_decompressed``, ``bam.RecordDecoder``)
+   into chunks on a bounded queue;
 2. the main thread turns each chunk into ``ReadData`` (GATK's input
    normalisation: base quals clamped >= 6, constant GOPs) and dispatches it
    with ``PairHMM.compute_likelihoods_async``;
@@ -18,9 +18,12 @@ determined haplotypes; :func:`sw_align_stream` realigns a BAM's reads
 against one reference window; :func:`bam_recompress` streams a BAM through
 decode, re-encode and the parallel BGZF deflate.
 
-Stage times land in ``profiling.METRICS`` (pipeline_wait,
-pipeline_dispatch, pipeline_resolve, pipeline_sw, pipeline_pdhmm) when
-metrics are on.
+Stage times land in ``profiling.METRICS`` when metrics are on:
+``pipeline_wait`` (the wait for the producer's next chunk) and
+``pipeline_dispatch`` (``ReadData`` and the PairHMM dispatch) on the
+caller's thread; ``pipeline_inflate`` (each batch of BGZF members) and
+``pipeline_decode`` (record parsing, filtering and chunking) on the
+producer's.  The engines record their own calls and stages.
 """
 
 from __future__ import annotations
@@ -29,13 +32,13 @@ import collections
 import dataclasses
 import queue as queue_mod
 import threading
-import time
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
 from . import bam as bam_mod
 from . import profiling
+from .compression import bgzf
 from .api import HaplotypeData, PairHMM, ReadData
 from .api_pdhmm import PDHMM
 from .api_sw import OverhangStrategy, SmithWaterman, SWParameters
@@ -61,9 +64,10 @@ class RegionChunkResult:
     pd_likelihoods: np.ndarray | None  # (n_reads, n_pd_haps) PDHMM log10
 
 
-# HaplotypeCaller's read-to-haplotype realignment scores
-# (SmithWatermanAlignmentConstants: match 200, mismatch -150, open -260,
-# extend -11)
+# GATK's haplotype-to-reference scores (SmithWatermanAlignmentConstants
+# NEW_SW_PARAMETERS: match 200, mismatch -150, open -260, extend -11), as
+# the JAX package's region_stream uses them; HaplotypeCaller realigns reads
+# to haplotypes with 10, -15, -30, -5
 DEFAULT_SW_PARAMETERS = SWParameters(200, -150, -260, -11)
 
 
@@ -100,11 +104,12 @@ def _is_filtered(rec: bam_mod.BamRecord) -> bool:
 
 def _chunk_producer(bam_path: str, *, chunk_reads: int, limit: int | None,
                     include_filtered: bool, threads: int | None,
-                    prefetch: int):
+                    prefetch: int, on: bool):
     """Start the producer thread: decodes and filters records into
     ``chunk_reads``-sized batches on a bounded queue.  Returns (queue,
     stop_event); the consumer sets the event when it stops reading, so the
-    thread cannot stay blocked on a full queue."""
+    thread cannot stay blocked on a full queue.  ``on``: the caller's
+    metrics switch."""
     q: queue_mod.Queue = queue_mod.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
 
@@ -119,20 +124,33 @@ def _chunk_producer(bam_path: str, *, chunk_reads: int, limit: int | None,
 
     def producer():
         try:
-            _, record_iter = bam_mod.read_bam_streaming(
-                bam_path, limit=limit, threads=threads)
+            chunks = bgzf.iter_decompressed(bam_path, threads=threads)
+            dec = bam_mod.RecordDecoder(limit)
             batch: list[bam_mod.BamRecord] = []
-            for rec in record_iter:
-                if not include_filtered and _is_filtered(rec):
-                    continue
-                if len(rec.seq) == 0:
-                    # '*'-sequence records can never go through PairHMM
-                    continue
-                batch.append(rec)
-                if len(batch) >= chunk_reads:
-                    if not _put(("chunk", batch)):
+            while not dec.done:
+                with profiling.span("pipeline_inflate", on) as s:
+                    chunk = next(chunks, None)
+                    s.items = len(chunk) if chunk is not None else 0
+                if chunk is None:
+                    dec.finish()
+                    break
+                full = []
+                with profiling.span("pipeline_decode", on) as s:
+                    recs = dec.feed(chunk)
+                    s.items = len(recs)
+                    for rec in recs:
+                        if not include_filtered and _is_filtered(rec):
+                            continue
+                        if len(rec.seq) == 0:
+                            # '*'-sequence records can never go through PairHMM
+                            continue
+                        batch.append(rec)
+                        if len(batch) >= chunk_reads:
+                            full.append(batch)
+                            batch = []
+                for b in full:
+                    if not _put(("chunk", b)):
                         return
-                    batch = []
             if batch and not _put(("chunk", batch)):
                 return
             _put(("done", None))
@@ -163,40 +181,29 @@ def pairhmm_stream(
     """
     hmm = hmm or PairHMM()
     haplotypes = list(haplotypes)
+    on = profiling.metrics_enabled()
     q, stop = _chunk_producer(bam_path, chunk_reads=chunk_reads, limit=limit,
                               include_filtered=include_filtered,
-                              threads=threads, prefetch=prefetch)
-    metrics_on = profiling.metrics_enabled()
+                              threads=threads, prefetch=prefetch, on=on)
     nh = len(haplotypes)
     pending: collections.deque = collections.deque()
 
     def resolve(entry) -> ChunkResult:
         names, nr, handle = entry
-        t0 = time.perf_counter()
-        res = ChunkResult(names, np.asarray(handle.result()).reshape(nr, nh))
-        if metrics_on:
-            profiling.METRICS.record("pipeline_resolve", items=nr,
-                                     seconds=time.perf_counter() - t0)
-        return res
+        return ChunkResult(names, np.asarray(handle.result()).reshape(nr, nh))
 
     try:
         while True:
-            t0 = time.perf_counter()
-            kind, payload = q.get()
-            if metrics_on:
-                profiling.METRICS.record("pipeline_wait", items=1,
-                                         seconds=time.perf_counter() - t0)
+            with profiling.span("pipeline_wait", on, items=1):
+                kind, payload = q.get()
             if kind == "error":
                 raise payload
             if kind == "done":
                 break
             records = payload
-            t0 = time.perf_counter()
-            reads = reads_from_records(records)
-            handle = hmm.compute_likelihoods_async(reads, haplotypes)
-            if metrics_on:
-                profiling.METRICS.record("pipeline_dispatch", items=len(reads),
-                                         seconds=time.perf_counter() - t0)
+            with profiling.span("pipeline_dispatch", on, items=len(records)):
+                reads = reads_from_records(records)
+                handle = hmm.compute_likelihoods_async(reads, haplotypes)
             pending.append(([r.name for r in records], len(reads), handle))
             # resolve two chunks behind: chunk N dispatches while N-1
             # computes and N-2's results come back
@@ -291,32 +298,23 @@ def region_stream(
     if pd_haplotypes is not None:
         pd_haplotypes = list(pd_haplotypes)
         pdhmm = pdhmm or PDHMM()
+    on = profiling.metrics_enabled()
     q, stop = _chunk_producer(bam_path, chunk_reads=chunk_reads, limit=limit,
                               include_filtered=include_filtered,
-                              threads=threads, prefetch=prefetch)
-    metrics_on = profiling.metrics_enabled()
+                              threads=threads, prefetch=prefetch, on=on)
     nh = len(haplotypes)
     pending: collections.deque = collections.deque()
 
     def resolve(entry) -> RegionChunkResult:
         records, reads, handle = entry
-        t0 = time.perf_counter()
         lik = np.asarray(handle.result()).reshape(len(reads), nh)
-        t1 = time.perf_counter()
         best = np.argmax(lik, axis=1)
         aligned = sw.align_batch([hap_seqs[b] for b in best], [r.read_bases for r in reads],
                                  sw_parameters, sw_strategy)
-        t2 = time.perf_counter()
         pd_lik = None
         if pd_haplotypes is not None:
             pd_lik = np.asarray(pdhmm.compute_likelihoods(reads, pd_haplotypes)).reshape(
                 len(reads), len(pd_haplotypes))
-        if metrics_on:
-            profiling.METRICS.record("pipeline_resolve", items=len(reads), seconds=t1 - t0)
-            profiling.METRICS.record("pipeline_sw", items=len(reads), seconds=t2 - t1)
-            if pd_haplotypes is not None:
-                profiling.METRICS.record("pipeline_pdhmm", items=len(reads),
-                                         seconds=time.perf_counter() - t2)
         return RegionChunkResult(
             read_names=[r.name for r in records], likelihoods=lik, best_haplotype=best,
             cigars=[a.cigar for a in aligned],
@@ -325,22 +323,16 @@ def region_stream(
 
     try:
         while True:
-            t0 = time.perf_counter()
-            kind, payload = q.get()
-            if metrics_on:
-                profiling.METRICS.record("pipeline_wait", items=1,
-                                         seconds=time.perf_counter() - t0)
+            with profiling.span("pipeline_wait", on, items=1):
+                kind, payload = q.get()
             if kind == "error":
                 raise payload
             if kind == "done":
                 break
             records = payload
-            t0 = time.perf_counter()
-            reads = reads_from_records(records)
-            handle = hmm.compute_likelihoods_async(reads, haplotypes)
-            if metrics_on:
-                profiling.METRICS.record("pipeline_dispatch", items=len(reads),
-                                         seconds=time.perf_counter() - t0)
+            with profiling.span("pipeline_dispatch", on, items=len(records)):
+                reads = reads_from_records(records)
+                handle = hmm.compute_likelihoods_async(reads, haplotypes)
             pending.append((records, reads, handle))
             while len(pending) > 2:
                 yield resolve(pending.popleft())

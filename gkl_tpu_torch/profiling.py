@@ -2,7 +2,10 @@
 of ``gkl_tpu/profiling.py``.
 
 * :class:`KernelMetrics` — process-wide counters (calls, items, cells,
-  bytes in, wall seconds) per kernel, queryable and printable as a table;
+  bytes in, wall seconds) per kernel, queryable and printable as a table,
+  and every CUDA kernel launch counted by kernel;
+* :func:`span` — one stage of a public call, timed into :data:`METRICS`
+  and, while a ``torch.profiler`` runs, marked in its trace;
 * :func:`trace` — a context manager around ``torch.profiler`` that writes
   a TensorBoard trace of the enclosed region;
 * :func:`profile_csv` — the DeflaterProfile.java:27-98 equivalent: per-level
@@ -10,12 +13,30 @@ of ``gkl_tpu/profiling.py``.
 
 The public APIs record into :data:`METRICS` when ``GKL_TPU_METRICS=1``
 (off by default: a counter update per call is noise for small batches).
-Counters: ``pairhmm``, ``pairhmm_rescue``, ``smithwaterman``,
-``sw_bt_copy`` (items = backtrack bytes brought to the host),
-``sw_host_walk`` (items = lanes walked), ``pdhmm``, ``pdhmm_rescue``
-(items = lanes recomputed on the f64 oracle), and the pipeline stages
-``pipeline_wait``, ``pipeline_dispatch``, ``pipeline_resolve``,
-``pipeline_sw`` and ``pipeline_pdhmm``.
+Whole calls: ``pairhmm``, ``smithwaterman`` and ``pdhmm`` (items = pairs
+or alignments).  Their stages, each a :func:`span`:
+
+* PairHMM: ``pairhmm_pack`` (validation, length grouping, packing, the
+  in-flight budget), ``pairhmm_dispatch`` (uploads, launch, the enqueued
+  copy back), ``pairhmm_wait``, ``pairhmm_finalize`` (log10, the rescue
+  choice, the scatter) with ``pairhmm_rescue`` inside it (items = lanes
+  recomputed on the f64 oracle);
+* SW: ``sw_pack`` (validation, the shape merge, each lane chunk's
+  packing), ``sw_dispatch`` (upload and launch), ``sw_wait``,
+  ``sw_bt_copy`` (items = backtrack bytes brought to the host),
+  ``sw_host_walk`` (items = lanes walked), ``sw_scalar`` (items = pairs
+  on the host's scalar aligner);
+* PDHMM: ``pdhmm_plan`` (the cross product, the lane order, the
+  slices), ``pdhmm_pack`` (the identity dedup and packing), ``pdhmm_wait``
+  (upload, kernel and the copy back), ``pdhmm_finalize`` (log10, the
+  validity check, the un-permute) with ``pdhmm_rescue`` inside it;
+* the streaming pipelines: ``pipeline_wait`` and ``pipeline_dispatch`` on
+  the caller's thread, ``pipeline_inflate`` and ``pipeline_decode`` on
+  the producer's.
+
+Launches are counted whatever the switch, as ``launch.<kernel>`` (calls =
+launches) in :meth:`KernelMetrics.snapshot`: ``pairhmm_scaled``,
+``pairhmm_rows``, ``pairhmm_cols``, ``sw_forward`` and ``pdhmm``.
 """
 
 from __future__ import annotations
@@ -44,6 +65,7 @@ class KernelMetrics:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[str, _Counter] = {}
+        self._launches: dict[str, int] = {}
 
     def record(self, kernel: str, *, items: int = 0, cells: int = 0,
                bytes_in: int = 0, seconds: float = 0.0) -> None:
@@ -67,8 +89,22 @@ class KernelMetrics:
             self.record(kernel, items=items, cells=cells, bytes_in=bytes_in,
                         seconds=time.perf_counter() - t0)
 
-    def snapshot(self) -> dict[str, dict]:
+    def launch(self, kernel: str) -> None:
+        """Count one launch of the CUDA kernel ``kernel``."""
         with self._lock:
+            self._launches[kernel] = self._launches.get(kernel, 0) + 1
+
+    def launches(self, kernel: str) -> int:
+        with self._lock:
+            return self._launches.get(kernel, 0)
+
+    def snapshot(self) -> dict[str, dict]:
+        """Every counter, and each kernel's launches as ``launch.<kernel>``
+        with ``calls`` = launches."""
+        with self._lock:
+            counters = dict(self._counters)
+            counters.update((f"launch.{k}", _Counter(calls=n))
+                            for k, n in self._launches.items() if n)
             return {
                 k: {
                     "calls": c.calls,
@@ -79,12 +115,14 @@ class KernelMetrics:
                     "cells_per_sec": c.cells / c.seconds if c.seconds else 0.0,
                     "bytes_per_sec": c.bytes_in / c.seconds if c.seconds else 0.0,
                 }
-                for k, c in self._counters.items()
+                for k, c in counters.items()
             }
 
     def reset(self) -> None:
+        """Clear every counter, the launch counts included."""
         with self._lock:
             self._counters.clear()
+            self._launches.clear()
 
     def report(self) -> str:
         """The counters as a table, one row per kernel in name order."""
@@ -103,6 +141,72 @@ METRICS = KernelMetrics()
 
 def metrics_enabled() -> bool:
     return os.environ.get("GKL_TPU_METRICS") == "1"
+
+
+class _Span:
+    """One entered stage: its counter's record on exit, and the profiler's
+    mark while a profiler runs.  ``items`` and ``cells`` may be set inside
+    the block, once they are known."""
+
+    __slots__ = ("name", "items", "cells", "t0", "mark")
+
+    def __init__(self, name: str, items: int, cells: int):
+        self.name, self.items, self.cells = name, items, cells
+        self.mark = None
+
+    def __enter__(self):
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.mark = torch.profiler.record_function("gkl." + self.name)
+            self.mark.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        METRICS.record(self.name, items=self.items, cells=self.cells,
+                       seconds=time.perf_counter() - self.t0)
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
+        return False
+
+
+class _Off:
+    """The stage of a call made with the switch off: records nothing, and
+    nothing reads what a block sets on it."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, on: bool, items: int = 0, cells: int = 0):
+    """A context manager around one stage of a call.  ``on`` is the
+    public call's :func:`metrics_enabled`, read once per call; off, the
+    stage costs this branch.  On, the stage's host-clock seconds and
+    ``items``/``cells`` go to :data:`METRICS` under ``name``, and while a
+    ``torch.profiler`` runs it is also a ``record_function`` named
+    ``gkl.<name>``, a ``user_annotation`` on the profiler's clock whose
+    parent is the span that encloses it on the same thread.  ``name`` is
+    a fixed string: no ids or shapes.  A span covers a whole stage of a
+    call, a lane chunk or a group, never one lane or read."""
+    return _Span(name, items, cells) if on else _OFF
+
+
+def launch_counts(module: str, **names: str):
+    """A module ``__getattr__`` for ``module`` under which each ``names``
+    key reads the launch count of the kernel it names (``LAUNCHES`` of
+    ``ops.sw_cuda`` is ``METRICS.launches("sw_forward")``), so that the
+    modules' old counters stay readable; :meth:`KernelMetrics.reset`
+    clears them."""
+    def __getattr__(attr: str):
+        if attr in names:
+            return METRICS.launches(names[attr])
+        raise AttributeError(f"module {module!r} has no attribute {attr!r}")
+    return __getattr__
 
 
 @contextlib.contextmanager
