@@ -10,6 +10,7 @@ wrapper transposes its two small planes to (lane, length) on the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -245,22 +246,45 @@ def pack_pairs_indexed(
 class PackedPDHMMIndexed:
     """PDHMM batch with deduplicated planes + per-pair indices.
 
-    The object path (``api_pdhmm.PDHMM.compute_likelihoods``) appends the
-    same array objects for every cross-product pair, so unique haplotype
-    planes (bases, PD bytes, column states) and unique read planes (bases
-    and 4 quality planes) go to the device once and the kernel gathers each
-    lane's columns: ``3H*nu_h + 5R*nu_r`` bytes instead of ``(3H + 5R)*n``.
+    The object path (``api_pdhmm.PDHMM.compute_likelihoods``) shares one
+    array per read and per haplotype across the cross product, so unique
+    haplotype planes (bases, PD bytes) and unique read planes (bases and 4
+    quality planes) go to the device once and the kernel gathers each
+    lane's columns: ``2H*nu_h + 5R*nu_r`` bytes instead of ``(2H + 5R)*n``.
     """
 
     hap_u: np.ndarray  # (H, nu_h) uint8
     happd_u: np.ndarray  # (H, nu_h) uint8 — PD bytes
-    states_u: np.ndarray  # (H, nu_h) uint8 — ops.pdhmm.column_states(happd_u)
     readq_u: np.ndarray  # (5, R, nu_r) uint8 [bases, q, iq, dq, gcp]
     ridx: np.ndarray  # (P,) int32
     hidx: np.ndarray  # (P,) int32
     haplen: np.ndarray  # (P,) int32
     rslen: np.ndarray  # (P,) int32
     n_real: int
+
+    @functools.cached_property
+    def states_u(self) -> np.ndarray:
+        """(H, nu_h) uint8 ``ops.pdhmm.column_states(happd_u)``, computed
+        on first access: the kernel and its twin derive the jump states
+        from the PD bytes themselves, so no launch reads this."""
+        from .ops.pdhmm import column_states
+
+        return column_states(self.happd_u)
+
+
+def _pad_planes(planes: Sequence[Sequence[np.ndarray]], length: int, lanes: int,
+                fills: Sequence[int]) -> np.ndarray:
+    """(len(planes), length, lanes) uint8: column c of plane k holds
+    ``planes[k][c]`` and plane k pads with ``fills[k]``.  One masked
+    scatter of the concatenated columns, whatever their lengths (PDHMM's
+    reads, clipped to a window, have many)."""
+    flat = [s for seqs in planes for s in seqs]
+    k, n = len(planes), len(planes[0])
+    lens = np.fromiter(map(len, flat), np.int32, count=len(flat)).reshape(k, n)
+    out = np.empty((k, lanes, length), np.uint8)
+    out[...] = np.asarray(fills, np.uint8)[:, None, None]
+    out[:, :n][np.arange(length, dtype=np.int32) < lens[:, :, None]] = np.concatenate(flat)
+    return np.ascontiguousarray(out.transpose(0, 2, 1))
 
 
 def pack_pdhmm_indexed(
@@ -278,28 +302,58 @@ def pack_pdhmm_indexed(
 
     ``ridx``/``hidx`` map each real pair lane to its unique read /
     haplotype column (deduplication is the caller's)."""
-    from .ops.pdhmm import column_states
-
-    H = bucket_length(max(len(h) for h in uhaps))
-    R = bucket_length(max(len(r) for r in ureads))
-    nu_h = bucket_lanes(len(uhaps), 8)
-    nu_r = bucket_lanes(len(ureads), 8)
-    hap_u = _pad_columns(uhaps, H, nu_h, 0)
-    happd_u = _pad_columns(uhap_pds, H, nu_h, 0)
-    readq_u = np.stack([_pad_columns(ureads, R, nu_r, 0)] + [
-        _pad_columns([qs[k] for qs in uread_quals], R, nu_r, qual_fill) for k in range(4)])
+    hlen = np.fromiter(map(len, uhaps), np.int32, count=len(uhaps))
+    rlen = np.fromiter(map(len, ureads), np.int32, count=len(ureads))
+    H = bucket_length(int(hlen.max()))
+    R = bucket_length(int(rlen.max()))
+    hap_u, happd_u = _pad_planes((uhaps, uhap_pds), H, bucket_lanes(len(uhaps), 8), (0, 0))
+    readq_u = _pad_planes([ureads, *zip(*uread_quals)], R, bucket_lanes(len(ureads), 8),
+                          (0,) + (qual_fill,) * 4)
     n = len(ridx)
     P = bucket_lanes(n, lane_multiple)
     ridx_p = np.zeros(P, np.int32)
     hidx_p = np.zeros(P, np.int32)
-    ridx_p[:n] = np.asarray(ridx, np.int32)
-    hidx_p[:n] = np.asarray(hidx, np.int32)
+    ridx_p[:n] = ridx
+    hidx_p[:n] = hidx
     haplen = np.ones(P, np.int32)
     rslen = np.ones(P, np.int32)
-    haplen[:n] = np.array([len(h) for h in uhaps], np.int32)[hidx_p[:n]]
-    rslen[:n] = np.array([len(r) for r in ureads], np.int32)[ridx_p[:n]]
-    return PackedPDHMMIndexed(hap_u, happd_u, column_states(happd_u), readq_u,
-                              ridx_p, hidx_p, haplen, rslen, n)
+    haplen[:n] = hlen[hidx_p[:n]]
+    rslen[:n] = rlen[ridx_p[:n]]
+    return PackedPDHMMIndexed(hap_u, happd_u, readq_u, ridx_p, hidx_p, haplen, rslen, n)
+
+
+def _first_appearance(idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct values of ``idx`` in the order of their first
+    appearance, and each entry's position among them."""
+    values, first, inverse = np.unique(idx, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    position = np.empty(len(values), np.int32)
+    position[order] = np.arange(len(values), dtype=np.int32)
+    return values[order], position[inverse.reshape(-1)]
+
+
+def pack_pdhmm_lanes(
+    haps: Sequence[np.ndarray],
+    hap_pds: Sequence[np.ndarray],
+    reads: Sequence[np.ndarray],
+    read_quals: Sequence[tuple],
+    ridx: np.ndarray,
+    hidx: np.ndarray,
+    *,
+    lane_multiple: int = LANE_MULTIPLE,
+) -> tuple[PackedPDHMMIndexed, int]:
+    """Pack the lanes ``ridx``/``hidx``, indices into a call's unique reads
+    (``reads``, ``read_quals``) and haplotypes (``haps``, ``hap_pds``):
+    :func:`pack_pdhmm_indexed` of the columns those lanes use, in the
+    order of their first lane.  Returns the batch and the number of unique
+    planes it packs (reads plus haplotypes)."""
+    ru, rloc = _first_appearance(ridx)
+    hu, hloc = _first_appearance(hidx)
+    ru, hu = ru.tolist(), hu.tolist()
+    pk = pack_pdhmm_indexed([haps[k] for k in hu], [hap_pds[k] for k in hu],
+                            [reads[k] for k in ru], [read_quals[k] for k in ru],
+                            rloc, hloc, lane_multiple=lane_multiple)
+    return pk, len(ru) + len(hu)
 
 
 def group_by_bucket(haps: Sequence[np.ndarray], reads: Sequence[np.ndarray]):
@@ -318,8 +372,7 @@ def from_reference(packed) -> PackedPairs | PackedPairsIndexed | PackedPDHMMInde
     can run one identical batch."""
     if hasattr(packed, "happd_u"):
         return PackedPDHMMIndexed(
-            *(np.asarray(getattr(packed, f), np.uint8)
-              for f in ("hap_u", "happd_u", "states_u", "readq_u")),
+            *(np.asarray(getattr(packed, f), np.uint8) for f in ("hap_u", "happd_u", "readq_u")),
             *(np.asarray(getattr(packed, f), np.int32)
               for f in ("ridx", "hidx", "haplen", "rslen")),
             n_real=int(packed.n_real))

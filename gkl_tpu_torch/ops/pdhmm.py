@@ -43,17 +43,22 @@ def column_states(hap_pd: np.ndarray) -> np.ndarray:
     """Per-column jump state (uint8) from (H, P) PD flag bytes: the state
     *when processing* column j+1 (0-based index j), in the update order of
     pdhmm-serial.cc:370-385 (AFTER_DEL resets to NORMAL, DEL_START enters
-    INSIDE_DEL, DEL_END overriding it enters AFTER_DEL)."""
+    INSIDE_DEL, DEL_END overriding it enters AFTER_DEL).
+
+    The state after column j follows from the last deletion event e <= j
+    alone: INSIDE_DEL after a DEL_START without DEL_END, AFTER_DEL after a
+    DEL_END at e = j, NORMAL after an older DEL_END or with no event; so
+    the whole plane is one forward fill of the last event's column."""
+    hap_pd = np.asarray(hap_pd, np.uint8)
     H, P = hap_pd.shape
+    cols = np.arange(H)[:, None]
+    event = (hap_pd & (DEL_START | DEL_END)) != 0
+    last = np.maximum.accumulate(np.where(event, cols, -1), axis=0)
+    pd_last = np.take_along_axis(hap_pd, np.maximum(last, 0), axis=0)
+    after = np.where((pd_last & DEL_END) != 0,
+                     np.where(last == cols, ST_AFTER, ST_NORMAL), ST_INSIDE)
     out = np.zeros((H, P), np.uint8)
-    state = np.zeros(P, np.uint8)
-    for j in range(H):
-        out[j] = state
-        pd = hap_pd[j]
-        nxt = np.where(state == ST_AFTER, ST_NORMAL, state).astype(np.uint8)
-        nxt = np.where(pd & DEL_START, ST_INSIDE, nxt).astype(np.uint8)
-        nxt = np.where(pd & DEL_END, ST_AFTER, nxt).astype(np.uint8)
-        state = nxt
+    out[1:] = np.where(last < 0, ST_NORMAL, after)[:-1]
     return out
 
 

@@ -26,10 +26,13 @@ or alignments).  Their stages, each a :func:`span`:
   ``sw_bt_copy`` (items = backtrack bytes brought to the host),
   ``sw_host_walk`` (items = lanes walked), ``sw_scalar`` (items = pairs
   on the host's scalar aligner);
-* PDHMM: ``pdhmm_plan`` (the cross product, the lane order, the
-  slices), ``pdhmm_pack`` (the identity dedup and packing), ``pdhmm_wait``
-  (upload, kernel and the copy back), ``pdhmm_finalize`` (log10, the
-  validity check, the un-permute) with ``pdhmm_rescue`` inside it;
+* PDHMM: ``pdhmm_plan`` (the cross product as indices into the unique
+  planes, the lane order, the slices), ``pdhmm_pack`` (a slice's unique
+  planes and packing), ``pdhmm_wait`` (upload, kernel and the copy back),
+  ``pdhmm_finalize`` (log10, the validity check, the un-permute) with
+  ``pdhmm_rescue`` inside it; and a counter, no span: ``pdhmm_unique``, a
+  slice's unique read planes plus unique haplotype planes packed (its
+  ``pdhmm_pack`` items are the slice's lanes);
 * the streaming pipelines: ``pipeline_wait`` and ``pipeline_dispatch`` on
   the caller's thread, ``pipeline_inflate`` and ``pipeline_decode`` on
   the producer's.

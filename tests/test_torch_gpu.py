@@ -475,6 +475,59 @@ def test_pdhmm_golden_on_card(cuda_device, use_double):
     np.testing.assert_allclose(got, [c.expected for c in cases], rtol=0, atol=1e-4)
 
 
+def test_pdhmm_object_path_on_card_is_the_flat_path(cuda_device, monkeypatch):
+    """On the card, ``compute_likelihoods`` under a 1 MB budget (reads of
+    two kernel passes against 1,000-base haplotypes: several slices) is bit
+    for bit ``compute_pdhmm`` on the flattened read-major cross product, and
+    neither path computes the column states: the kernel derives them, so
+    ``PackedPDHMMIndexed.states_u`` stays unread."""
+    from gkl_tpu_torch import PDHMM, PDHaplotypeData, PDHMMNativeArguments
+    from gkl_tpu_torch.ops import pdhmm as pdhmm_ops
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    rng = np.random.default_rng(17)
+    base = BASES[rng.integers(0, 4, 1000)]
+    haps = []
+    for k in range(4):
+        pd = np.zeros(1000, np.uint8)
+        if k:
+            at = 100 * k
+            pd[at], pd[at + 5 * k] = 2, 4
+            pd[at + 300] = 1 | 16
+        haps.append(PDHaplotypeData(base.copy(), haplotype_pdbases=pd))
+    reads = []
+    for _ in range(60):
+        n = int(rng.integers(260, 301))
+        start = int(rng.integers(0, 1000 - n))
+        read = base[start:start + n].copy()
+        read[rng.integers(0, n, 3)] = BASES[rng.integers(0, 4, 3)]
+        reads.append(ReadData(read, rng.integers(10, 40, n).astype(np.uint8),
+                              *(np.full(n, v, np.uint8) for v in (45, 45, 10))))
+    calls = []
+    real = pdhmm_ops.column_states
+    monkeypatch.setattr(pdhmm_ops, "column_states", lambda pd: calls.append(1) or real(pd))
+    args = PDHMMNativeArguments(max_memory_in_mb=1)
+    launches = pdhmm_cuda.LAUNCHES
+    got = PDHMM(args, device=cuda_device).compute_likelihoods(reads, haps)
+    assert pdhmm_cuda.LAUNCHES - launches >= 2
+
+    def rows(seqs, width):
+        out = np.zeros((len(seqs), width), np.uint8)
+        for k, s in enumerate(seqs):
+            out[k, :len(s)] = s
+        return out
+    pairs = [(r, h) for r in reads for h in haps]
+    flat = PDHMM(args, device=cuda_device).compute_pdhmm(
+        rows([h.haplotype_bases for _, h in pairs], 1000),
+        rows([h.haplotype_pdbases for _, h in pairs], 1000),
+        *(rows([getattr(r, f) for r, _ in pairs], 300) for f in (
+            "read_bases", "read_quals", "insertion_gop", "deletion_gop", "overall_gcp")),
+        [1000] * len(pairs), [len(r.read_bases) for r, _ in pairs])
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got.view(np.int64), flat.view(np.int64))
+    assert calls == []
+
+
 def test_pdhmm_pallas_level_runs_on_card(cuda_device):
     """KernelLevel.PALLAS runs the kernel on a CUDA device."""
     from gkl_tpu_torch import PDHMM, KernelLevel, PDHaplotypeData, PDHMMNativeArguments

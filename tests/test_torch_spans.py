@@ -236,7 +236,8 @@ def test_pdhmm_stages(monkeypatch):
     """The object path: the cross product and the lane order are two
     plans, one slice packed and waited for, its finalize with the rescue
     inside it, and the un-permute; ``pdhmm`` and ``pdhmm_rescue`` keep
-    their items."""
+    their items; ``pdhmm_unique`` counts the slice's unique read and
+    haplotype planes."""
     monkeypatch.setenv("GKL_TPU_METRICS", "1")
     _force_rescue(monkeypatch, api_pdhmm)
     reads, haps = _reads_and_haps()
@@ -248,7 +249,8 @@ def test_pdhmm_stages(monkeypatch):
     n = len(reads) * len(haps)
     assert _counts(snap) == {
         "pdhmm": (1, n), "pdhmm_plan": (2, 2 * n), "pdhmm_pack": (1, n), "pdhmm_wait": (1, n),
-        "pdhmm_finalize": (2, n), "pdhmm_rescue": (1, n)}
+        "pdhmm_finalize": (2, n), "pdhmm_rescue": (1, n),
+        "pdhmm_unique": (1, len(reads) + len(haps))}
     assert snap["pdhmm"]["cells"] == (sum(len(r.read_bases) for r in reads)
                                       * sum(len(h.haplotype_bases) for h in haps))
     _stages_within_call(snap, "pdhmm", wall)
