@@ -31,7 +31,10 @@ before printing any result.  Phases, one line each (or a few):
    reads (bt codes of rows < reflen and columns < altlen, lastrow[:altlen],
    lastcol[:reflen]): (a) the realignment shape N=448, M=256, P=10,240;
    (b) the haplotype-to-reference shape N=4,096, alts 600-1,000, P=256,
-   each with the launch's geometry (rows a thread, passes, warps);
+   each with the launch's geometry (rows a thread, passes, warps), and the
+   walk kernel on each launch's outputs against its twin (every lane) and
+   the native runtime's walk (256 lanes), timed, with the copy of the rows
+   ``SmithWaterman`` first brings back beside the backtrack's copy;
    (c) two pairs at the 32,767-base limit through ``SmithWaterman`` against
    the native scalar aligner;
 8. PDHMM kernel vs twin (in-range lanes at 1e-5 in log10, the same lanes
@@ -155,6 +158,7 @@ last is ``{"ok": true, "device": {...}}``.  Any failure raises.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -190,7 +194,7 @@ SP_ORACLE_LANES = 256
 RAW_BATCH_CPU_LANES = 256
 PROFILE_CSV_BYTES = 4 << 20
 TRACE_KERNEL_NAMES = {"pairhmm_scaled": "pairhmm_kernel", "sw_forward": "sw_forward_kernel",
-                      "pdhmm": "pdhmm_kernel"}
+                      "sw_walk": "sw_walk_kernel", "pdhmm": "pdhmm_kernel"}
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s.  int32 (the SW
 # cells): the Hopper white paper's 64 INT32 units per SM, x 132 SMs x the
@@ -489,6 +493,10 @@ def phase_build():
                 raise AssertionError(f"no {kernel} instance for {rows} rows a thread in the "
                                      f"ptxas log")
             log("1 build", kernel=kernel, rows_per_thread=rows, **instances[str(rows)])
+    walk = kernel_instances(build_log, r"(sw_walk_kernel)")
+    if not walk:
+        raise AssertionError("no sw_walk kernel in the ptxas log")
+    log("1 build", kernel="sw_walk", **walk["sw_walk_kernel"])
 
 
 def kernel_instances(build_log: str, pattern: str) -> dict:
@@ -832,7 +840,7 @@ def phase_sw_kernel_vs_twin():
     from gkl_tpu_torch.ops import sw_cuda
 
     dev = torch.device("cuda")
-    timing = None
+    timing = walk_timing = None
     shapes = (("7a realign", 448, 10240, 160, 48, 250, SOFTCLIP, 5),
               ("7b hap_to_ref", 4096, 256, 2049, 600, 1000, INDEL, 3))
     for what, N, P, ref_lo, alt_lo, alt_hi, strategy, reps in shapes:
@@ -863,9 +871,11 @@ def phase_sw_kernel_vs_twin():
             kernel_gcells_per_s=cells / ms / 1e6, twin_gcells_per_s=cells / plain_ms / 1e6,
             bt_bytes=bt_host.numel(), bt_copy_ms=copy_ms,
             bt_copy_gb_per_s=bt_host.numel() / copy_ms / 1e6, **b)
+        walk = sw_walk_vs_twin(what, k_out, bt_host, args[2], args[3], strategy, reps)
         del k_out, t_out, bt_host
         if timing is None:
             timing = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b}
+            walk_timing = walk
 
     # pairs at the length limit, one thread of 33M cells each
     rng = np.random.default_rng(8)
@@ -893,7 +903,65 @@ def phase_sw_kernel_vs_twin():
             raise AssertionError(f"{what}: the kernel did not run")
         if (got.cigar, got.alignment_offset) != (want.cigar, want.alignment_offset):
             raise AssertionError(f"{what}: {got} != scalar {want}")
-    return timing
+    return timing, walk_timing
+
+
+def sw_walk_vs_twin(what, fwd, bt_host, reflen, altlen, strategy, reps):
+    """The walk kernel on a forward launch's outputs as they lie, against
+    its twin on the same card tensors (every lane: count, offset and runs)
+    and the native runtime's walk (the first 256 lanes: CIGAR and offset),
+    timed by CUDA events; then the copy of the rows that the first copy of
+    ``SmithWaterman`` brings back, beside the backtrack's copy.  Returns
+    the walk's timing for the kernel table: its bound is the latency of a
+    lane's chain of dependent loads (no byte or operation bound applies)."""
+    import torch
+
+    from gkl_tpu_torch import api_sw
+    from gkl_tpu_torch.ops import sw as sw_ops
+    from gkl_tpu_torch.ops import sw_cuda
+
+    def kernel(i):
+        return sw_cuda.sw_walk(*fwd, reflen, altlen, strategy)
+
+    def twin(i):
+        return sw_ops.sw_walk(*fwd, reflen, altlen, strategy)
+
+    launches = sw_cuda.WALK_LAUNCHES
+    got, want = kernel(0), twin(0)
+    if sw_cuda.WALK_LAUNCHES != launches + 1:
+        raise AssertionError(f"SW walk, {what}: the kernel did not run")
+    bad = sw_cuda.walk_mismatches(got, want)
+    if bad:
+        raise AssertionError(f"SW walk kernel vs twin, {what}: {bad} lanes differ")
+    host = got.cpu().numpy()
+    lanes = min(256, host.shape[1])
+    cigars = api_sw.format_cigars(host[2:, :lanes], host[0, :lanes])
+    sw = api_sw.SmithWaterman()
+    lastrow_t = fwd[1].cpu().numpy().T.copy()
+    lastcol = fwd[2].cpu().numpy()
+    rl, al = reflen.cpu().numpy(), altlen.cpu().numpy()
+    bt = bt_host.numpy()
+    native_bad = sum(
+        (cigars[c], int(host[1, c])) != dataclasses.astuple(sw._postprocess(
+            bt[c], int(rl[c]), int(al[c]), lastrow_t[c], lastcol[c],
+            api_sw.OverhangStrategy(strategy)))
+        for c in range(lanes))
+    if native_bad:
+        raise AssertionError(f"SW walk kernel vs native, {what}: {native_bad} lanes differ")
+    ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(twin, 1)
+    rows = 2 + api_sw.SW_RUNS_FIRST_COPY
+    pinned = torch.empty((rows, got.shape[1]), dtype=torch.int32, pin_memory=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pinned.copy_(got[:rows])
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    log(what.split()[0] + " sw_walk_vs_twin", lanes=got.shape[1], strategy=strategy,
+        lanes_differ_twin=bad, lanes_differ_native=native_bad, native_lanes=lanes,
+        kernel_ms=ms, twin_ms=plain_ms, runs_max=int(host[0].max()),
+        runs_mean=float(host[0].mean()), longest_chain=int((rl + al).max()),
+        first_copy_bytes=pinned.numel() * 4, first_copy_ms=copy_ms)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": None,
+            "bound_by": "latency"}
 
 
 def pdhmm_batch(R, H, P, seed):
@@ -1212,12 +1280,12 @@ def phase_region_corpus(c):
         runs.append(dict(
             outputs=outputs,
             launches={"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
-                      "pdhmm": pdhmm_cuda.LAUNCHES},
+                      "sw_walk": sw_cuda.WALK_LAUNCHES, "pdhmm": pdhmm_cuda.LAUNCHES},
             pairhmm_s=pairhmm_s, sw_s=sw_s, pdhmm_s=pdhmm_s,
             wall_s=pairhmm_s + sw_s + pdhmm_s,
             pairhmm_rescued=m.get("pairhmm_rescue", {}).get("items", 0),
             pairhmm_rescue_s=m.get("pairhmm_rescue", {}).get("seconds", 0.0),
-            sw_bt_bytes=m.get("sw_bt_copy", {}).get("items", 0),
+            sw_copy_bytes=m.get("sw_bt_copy", {}).get("items", 0),
             sw_bt_copy_s=m.get("sw_bt_copy", {}).get("seconds", 0.0),
             sw_host_walk_s=m.get("sw_host_walk", {}).get("seconds", 0.0),
             pdhmm_rescued=m.get("pdhmm_rescue", {}).get("items", 0),
@@ -1273,7 +1341,7 @@ def phase_region_corpus(c):
         pdhmm_kernel_ms_first=sum(s.elapsed_time(e) for s, e in pd_events),
         pairhmm_rescued_lanes=runs[0]["pairhmm_rescued"],
         pdhmm_lanes=nr * len(c["pdd"]), pdhmm_rescued_lanes=runs[0]["pdhmm_rescued"],
-        sw_bt_bytes=runs[0]["sw_bt_bytes"], oracle_sample_reads=len(sample),
+        sw_copy_bytes=runs[0]["sw_copy_bytes"], oracle_sample_reads=len(sample),
         pairhmm_max_abs_err=err, pdhmm_max_abs_err=pd_oracle_err, sw_reads_exact=n_sw)
     if n_sw < 640:
         raise AssertionError(f"only {n_sw} SW reads checked")
@@ -2065,7 +2133,7 @@ def phase_observability(c, corpus_payload_head):
     finally:
         os.environ.pop("GKL_TPU_METRICS")
     launches = {"pairhmm_scaled": pairhmm_cuda.LAUNCHES, "sw_forward": sw_cuda.LAUNCHES,
-                "pdhmm": pdhmm_cuda.LAUNCHES}
+                "sw_walk": sw_cuda.WALK_LAUNCHES, "pdhmm": pdhmm_cuda.LAUNCHES}
     log("16c trace", trace_bytes=trace_bytes, **{f"launches_{k}": v for k, v in launches.items()},
         **{f"trace_lines_naming_{k}": v for k, v in named.items()},
         traced_stage_s=[round(x, 6) for x in stage_s], traced_wall_s=wall, **host)
@@ -2355,7 +2423,7 @@ def main(argv) -> int:
     _, path_err = phase_active_region()
     timing["max_abs_err"] = max(timing["max_abs_err"], path_err)
     phase_long_pairs()
-    sw_timing = phase_sw_kernel_vs_twin()
+    sw_timing, walk_timing = phase_sw_kernel_vs_twin()
     pd_timing = phase_pdhmm_kernel_vs_twin()
     phase_pdhmm_golden()
     phase_region()
@@ -2376,6 +2444,7 @@ def main(argv) -> int:
         ("pairhmm_cols", "pairhmm_cols.cu",
          "gkl_tpu/ops/pairhmm_pallas_cols.py:44 and :166", cols_timing),
         ("sw_forward", "sw_forward.cu", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
+        ("sw_walk", "sw_walk.cu", None, walk_timing),
         ("pdhmm", "pdhmm.cu", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
     ]
     band = ("eight threads a lane on an 8-row band wavefront, four lanes a warp; the "
@@ -2388,6 +2457,9 @@ def main(argv) -> int:
                            "rows a thread in passes of 32 strips, the pass boundary in (P, M) "
                            "planes, bt written lane-major in 8-column words; one kernel for "
                            "both TPU kernels",
+             "sw_walk": "replaces none (the JAX package walks on the host): one thread per "
+                        "lane selects the maximum and walks the CIGAR where sw_forward left "
+                        "the backtrack; only the runs leave the card",
              "pdhmm": "a warp per lane on an anti-diagonal wavefront, 2, 4 or 8 read rows a "
                       "thread in passes of 32 strips, the jump state riding down the warp "
                       "with the haplotype byte, the pass boundary in (P, H) planes only past "

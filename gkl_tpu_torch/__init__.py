@@ -3,9 +3,11 @@
 The active-region kernels of GATK on an NVIDIA Hopper GPU, under the public
 names of ``gkl_tpu``: the PairHMM forward likelihood, Smith-Waterman
 realignment and the PDHMM forward likelihood, each backed by a hand-written
-CUDA kernel (``csrc/*.cu``) with a plain PyTorch twin for CPU tensors; the
-host f64 rescues and the CIGAR walk on the port's byte-identical copy of
-the JAX package's native C++ (``native/``); the DEFLATE codec and BAM
+CUDA kernel (``csrc/*.cu``) with a plain PyTorch twin for CPU tensors, and
+Smith-Waterman's CIGAR walk on the card beside its DP; the host f64
+rescues, the walk on a mesh and the scalar aligner on the port's
+byte-identical copy of the JAX package's native C++ (``native/``); the
+DEFLATE codec and BAM
 reading and writing (``compression/``, ``bam``); the BAM streaming and
 region pipelines; the validation corpus (``validation``); and the
 multi-device layer (``parallel``: a ``dp`` mesh of CUDA devices behind

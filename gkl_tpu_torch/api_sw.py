@@ -5,11 +5,16 @@ Parity with IntelSmithWaterman (``smithwaterman/IntelSmithWaterman.java:44-191``
 = 32767, MAXIMUM_SW_MATCH_VALUE = 65536) and returns (cigar, offset).  The
 O(n*m) score and backtrack DP runs lane-batched on ``SmithWaterman.device``
 (the CUDA kernel ``csrc/sw_forward.cu``; its plain twin when the caller asks
-for ``device="cpu"``), or lane-sharded over a ``mesh``; the O(n+m) maximum
-selection and CIGAR walk run in
-the native runtime ``gkl_tpu_torch/native/sw_runtime.cc``, a byte-identical
-copy of the JAX package's ``gkl_tpu/native/sw_runtime.cc``.  Pairs whose backtrack exceeds the device budget even at the
-minimum lane padding go to that runtime's threaded scalar aligner.
+for ``device="cpu"``), and so do the O(n+m) maximum selection and CIGAR
+walk (``csrc/sw_walk.cu``, or its twin), which read the backtrack where the
+DP left it: only each lane's merged runs and offset come to the host, where
+one native call a chunk writes the CIGAR strings (``native/sw_cigar.cc``,
+the port's own).  On a ``mesh`` the DP is lane-sharded, and
+each process walks its own lanes from its backtrack shard in the native
+runtime ``gkl_tpu_torch/native/sw_runtime.cc``, a byte-identical copy of the
+JAX package's ``gkl_tpu/native/sw_runtime.cc``.  Pairs whose backtrack
+exceeds the device budget even at the minimum lane padding go to that
+runtime's threaded scalar aligner.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from . import batch as batch_mod
 from . import native_lib, profiling, utils
 from .api import _as_u8
+from .ops import sw as sw_ops
 from .ops import sw_cuda
 from .parallel import mesh as mesh_mod
 
@@ -38,6 +44,9 @@ SW_MAX_SHAPE_GROUPS = 4
 # lane chunks; a pair above it at the minimum lane padding goes to the
 # threaded scalar aligner
 SW_BT_BUDGET = 1 << 30
+# run rows of every lane in the first copy of a walk's output to the host; a
+# chunk with a longer CIGAR copies again, up to its longest
+SW_RUNS_FIRST_COPY = 8
 # host memory of the scalar pool: each worker holds one n*m-byte backtrack
 # vector, so concurrency clamps to BUDGET / max(n*m)
 SW_SCALAR_POOL_BUDGET = 2 << 30
@@ -78,6 +87,10 @@ def _runtime() -> ctypes.CDLL:
             _U8P, c_int, c_int, ctypes.c_long, _I32P, _I32P,
             c_int, ctypes.c_char_p, c_int, _I32P, _I32P,
         ]
+        # plain addresses: a chunk's call costs microseconds, not per-pointer casts
+        lib.sw_format_runs.restype = ctypes.c_long
+        lib.sw_format_runs.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                                       ctypes.c_void_p, c_int, ctypes.c_void_p, ctypes.c_long]
         lib.sw_align_scalar_batch.restype = None
         lib.sw_align_scalar_batch.argtypes = [
             _U8P, _I64P, _I32P, _U8P, _I64P, _I32P,
@@ -165,6 +178,28 @@ def sw_align_scalar_batch(refs, alts, p: SWParameters, strategy,
                             int(offsets[k])) for k in range(n)]
 
 
+def format_cigars(runs: np.ndarray, counts: np.ndarray) -> list[str]:
+    """CIGAR strings of walked lanes, in one native call
+    (``native/sw_cigar.cc``): ``runs`` (rows, lanes) int32, a view with
+    unit lane stride, holds lane ``c``'s merged runs in CIGAR order in
+    ``runs[:counts[c], c]`` as ``count << 4 | op`` (``ops.sw.sw_walk``'s
+    rows)."""
+    lanes = len(counts)
+    if lanes == 0:
+        return []
+    counts = np.ascontiguousarray(counts, np.int32)
+    if runs.dtype != np.int32 or runs.strides[1] != 4 or runs.shape[1] < lanes:
+        raise ValueError("runs must be an int32 (rows, lanes) view with unit lane stride")
+    cap = 12 * int(counts.sum()) + lanes + 1  # a run: <= 10 digits and its letter
+    buf = ctypes.create_string_buffer(cap)
+    n = _runtime().sw_format_runs(runs.ctypes.data, runs.strides[0] // 4, runs.shape[0],
+                                  counts.ctypes.data, lanes, ctypes.addressof(buf), cap)
+    if n < lanes:
+        raise RuntimeError(f"sw_format_runs failed ({n}): a lane counts more runs than "
+                           f"the rows hold, or the buffer was too small")
+    return ctypes.string_at(buf, n - 1).decode("ascii").split("\0")
+
+
 class SmithWaterman:
     """Smith-Waterman aligner (IntelSmithWaterman).
 
@@ -245,8 +280,10 @@ class SmithWaterman:
 
         lm = self._lane_multiple
         for (N, M), idxs in merged:
-            # lane chunks within the backtrack budget, in lane-padding units
-            max_lanes = max(lm, (SW_BT_BUDGET // ((N // 2) * M)) // lm * lm)
+            # lane chunks within the backtrack budget, in lane-padding units;
+            # a lane's walked runs count against it too
+            lane_bytes = (N // 2) * M + 4 * (2 + sw_ops.walk_capacity(N, M))
+            max_lanes = max(lm, (SW_BT_BUDGET // lane_bytes) // lm * lm)
             for s0 in range(0, len(idxs), max_lanes):
                 chunk = idxs[s0:s0 + max_lanes]
                 for k, res in zip(chunk, self._align_device(
@@ -270,10 +307,11 @@ class SmithWaterman:
 
     def _align_device(self, N, M, refs, alts, p: SWParameters, strategy, on: bool):
         """One launch over a lane chunk (one a lane slab on the mesh): pack,
-        run the DP on the device, bring the backtrack to the host and walk
-        each lane's CIGAR there.  On a mesh ``launch.wait()`` also brings
-        the slabs to the host, and ``sw_wait`` holds it; ``sw_bt_copy``
-        then covers the lane selection and the transpose."""
+        run the DP and the walk on the device, and bring each lane's runs,
+        count and offset to the host.  On a mesh the walk is the native
+        runtime's on this process's backtrack slabs: ``launch.wait()`` brings
+        them to the host, and ``sw_wait`` holds it; ``sw_bt_copy`` then
+        covers the lane selection and the transpose."""
         with profiling.span("sw_pack", on, items=len(refs)):
             P = batch_mod.bucket_lanes(len(refs), self._lane_multiple)
             ref_a = np.zeros((N, P), np.uint8)
@@ -286,43 +324,59 @@ class SmithWaterman:
                 reflen[c] = len(r)
                 altlen[c] = len(a)
             indel = strategy in (OverhangStrategy.INDEL, OverhangStrategy.LEADING_INDEL)
-        if self.mesh is not None:
-            with profiling.span("sw_dispatch", on, items=len(refs)):
-                # this process's lanes only: the backtrack never crosses processes
-                launch = mesh_mod.dispatch_sw(self.mesh, ref_a, alt_a, reflen, altlen, p,
-                                              indel_boundary=indel, gather=False)
-            with profiling.span("sw_wait", on, items=len(refs)):
-                bt, lastrow, lastcol = launch.wait()
-            with profiling.span("sw_bt_copy", on) as copy:
-                lanes = mesh_mod.local_lanes(self.mesh, P)
-                # bt (P, N/2, M) and lastcol (P, N) are lane-major; lastrow (M, P)
-                lastrow_t = np.ascontiguousarray(lastrow.T)
-                copy.items = bt.nbytes
-        else:
-            dev = self.device
-            with profiling.span("sw_dispatch", on, items=len(refs)):
-                args = [torch.from_numpy(x).to(dev) for x in (ref_a, alt_a, reflen, altlen)]
-                bt, lastrow, lastcol = sw_cuda.sw_forward(
-                    *args, p.match_value, p.mismatch_penalty, p.gap_open_penalty,
-                    p.gap_extend_penalty, indel_boundary=indel)
-            with profiling.span("sw_wait", on, items=len(refs)):
-                if dev.type == "cuda":
-                    torch.cuda.current_stream(dev).synchronize()
-            with profiling.span("sw_bt_copy", on) as copy:
-                bt, lastrow, lastcol = (t.cpu().numpy() for t in (bt, lastrow, lastcol))
-                lanes = slice(0, P)
-                lastrow_t = np.ascontiguousarray(lastrow.T)
-                copy.items = bt.nbytes
+        if self.mesh is None:
+            return self._align_walked(ref_a, alt_a, reflen, altlen, p, indel, strategy,
+                                      len(refs), on)
+        with profiling.span("sw_dispatch", on, items=len(refs)):
+            # this process's lanes only: the backtrack never crosses processes
+            launch = mesh_mod.dispatch_sw(self.mesh, ref_a, alt_a, reflen, altlen, p,
+                                          indel_boundary=indel, gather=False)
+        with profiling.span("sw_wait", on, items=len(refs)):
+            bt, lastrow, lastcol = launch.wait()
+        with profiling.span("sw_bt_copy", on) as copy:
+            lanes = mesh_mod.local_lanes(self.mesh, P)
+            # bt (P, N/2, M) and lastcol (P, N) are lane-major; lastrow (M, P)
+            lastrow_t = np.ascontiguousarray(lastrow.T)
+            copy.items = bt.nbytes
         with profiling.span("sw_host_walk", on, items=len(refs)):
             res = [self._postprocess(bt[c], int(reflen[k]), int(altlen[k]), lastrow_t[c],
                                      lastcol[c], strategy)
                    for c, k in enumerate(range(lanes.start, min(lanes.stop, len(refs))))]
-            if self.mesh is not None and mesh_mod.is_multiprocess(self.mesh):
+            if mesh_mod.is_multiprocess(self.mesh):
                 # every process's walked lanes, in rank (= lane) order
                 parts = [None] * mesh_mod.process_count()
                 torch.distributed.all_gather_object(parts, res)
                 res = [r for part in parts for r in part]
         return res
+
+    def _align_walked(self, ref_a, alt_a, reflen, altlen, p: SWParameters, indel: bool,
+                      strategy, n_lanes: int, on: bool) -> list[SWAlignerResult]:
+        """The DP and the walk on ``self.device``, one launch each; the
+        backtrack stays there, and the first ``n_lanes`` lanes' runs come
+        to the host."""
+        dev = self.device
+        with profiling.span("sw_dispatch", on, items=n_lanes):
+            args = [torch.from_numpy(x).to(dev) for x in (ref_a, alt_a, reflen, altlen)]
+            bt, lastrow, lastcol = sw_cuda.sw_forward(
+                *args, p.match_value, p.mismatch_penalty, p.gap_open_penalty,
+                p.gap_extend_penalty, indel_boundary=indel)
+            walk = sw_cuda.sw_walk(bt, lastrow, lastcol, args[2], args[3], strategy)
+        if on:
+            profiling.METRICS.record("sw_card_walk", items=n_lanes)
+        with profiling.span("sw_wait", on, items=n_lanes):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        with profiling.span("sw_bt_copy", on) as copy:
+            rows = min(2 + SW_RUNS_FIRST_COPY, walk.shape[0])
+            host = walk[:rows].cpu().numpy()
+            longest = int(host[0, :n_lanes].max(initial=0))
+            if 2 + longest > rows:
+                rows = 2 + longest
+                host = walk[:rows].cpu().numpy()
+            copy.items = host.nbytes
+        with profiling.span("sw_host_walk", on, items=n_lanes):
+            cigars = format_cigars(host[2:, :n_lanes], host[0, :n_lanes])
+            return list(map(SWAlignerResult, cigars, host[1, :n_lanes].tolist()))
 
     def _postprocess(self, bt_packed, n, m, lastrow, lastcol, strategy) -> SWAlignerResult:
         """Maximum selection and CIGAR walk of one lane on the native

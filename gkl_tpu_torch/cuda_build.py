@@ -87,6 +87,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32,                     # rows per thread: 2, 4 or 8
         vp,                      # cudaStream_t
     ]
+    lib.gkl_sw_walk.argtypes = [
+        vp, i32, i32,            # bt (P, N/2, M) u8; N, M
+        vp, vp,                  # lastrow (M, P), lastcol (P, N) i32
+        vp, vp, i32,             # reflen, altlen (P,) i32; P
+        i32, i32,                # overhang strategy (9-12); run rows a lane
+        vp,                      # out (2 + runs, P) i32: counts, offsets, runs
+        vp,                      # cudaStream_t
+    ]
     lib.gkl_pdhmm.argtypes = [
         vp, vp, i32, i32,        # hap_u, happd_u (H, nu_h) u8
         vp, i32, i32,            # readq_u (5, R, nu_r) u8
@@ -99,7 +107,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # cudaStream_t
     ]
     for fn in (lib.gkl_pairhmm_scaled, lib.gkl_pairhmm_rows, lib.gkl_pairhmm_cols,
-               lib.gkl_sw_forward, lib.gkl_pdhmm):
+               lib.gkl_sw_forward, lib.gkl_sw_walk, lib.gkl_pdhmm):
         fn.restype = i32
 
 

@@ -37,7 +37,7 @@ _SRC = {
     "gkl_codec": ["codec.cc", "deflate_fast.cc", "inflate_fast.cc"],
     "gkl_bam": ["bam_scan.cc"],
     "gkl_pairhmm_oracle": ["pairhmm_oracle.cc"],
-    "gkl_sw_runtime": ["sw_runtime.cc"],
+    "gkl_sw_runtime": ["sw_runtime.cc", "sw_cigar.cc"],
     "gkl_pdhmm_oracle": ["pdhmm_oracle.cc"],
 }
 _LINK = {"gkl_codec": ["-lz"], "gkl_bam": [], "gkl_pairhmm_oracle": [],

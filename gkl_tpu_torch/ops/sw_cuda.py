@@ -1,12 +1,15 @@
-"""Smith-Waterman score and backtrack DP: the CUDA kernel's wrapper.
+"""Smith-Waterman on the card: the wrappers of the DP and walk kernels.
 
-Counterpart of ``gkl_tpu/ops/sw_pallas.py`` (``sw_forward_pallas``, the
-relay wrapper ``sw_forward_pallas_relay`` and the alt-slab wrapper
-``_sw_mrelay_call``): one launch of ``csrc/sw_forward.cu`` (a warp per
-lane on an anti-diagonal wavefront, in the geometry :func:`sw_geometry`
-picks) covers any N, M <= 32767.  On CUDA tensors :func:`sw_forward`
-launches the kernel or raises; on CPU tensors it runs the plain twin
-``ops.sw.sw_forward``.
+:func:`sw_forward` is the counterpart of ``gkl_tpu/ops/sw_pallas.py``
+(``sw_forward_pallas``, the relay wrapper ``sw_forward_pallas_relay`` and
+the alt-slab wrapper ``_sw_mrelay_call``): one launch of
+``csrc/sw_forward.cu`` (a warp per lane on an anti-diagonal wavefront, in
+the geometry :func:`sw_geometry` picks) covers any N, M <= 32767.
+:func:`sw_walk` selects each lane's maximum and walks its CIGAR where the
+backtrack lies (``csrc/sw_walk.cu``, one thread per lane), so that only
+the runs leave the card; the JAX package walks on the host.  On CUDA
+tensors each wrapper launches its kernel or raises; on CPU tensors it runs
+the plain twin in ``ops.sw``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ from .. import cuda_build, debug, profiling
 from . import sw as sw_ops
 from .pairhmm_cuda import _check
 
-# LAUNCHES: launches of the CUDA kernel in this process
-__getattr__ = profiling.launch_counts(__name__, LAUNCHES="sw_forward")
+# LAUNCHES, WALK_LAUNCHES: launches of the DP and walk kernels in this process
+__getattr__ = profiling.launch_counts(__name__, LAUNCHES="sw_forward",
+                                      WALK_LAUNCHES="sw_walk")
 
 # The kernel's instances: reference rows each of a lane's 32 threads holds
 # (even, so that a thread owns whole bt bytes).
@@ -98,6 +102,57 @@ def sw_forward(ref, alt, reflen, altlen, match, mismatch, gap_open, gap_extend, 
     debug.after_launch(device)
     profiling.METRICS.launch("sw_forward")
     return bt, lastrow, lastcol
+
+
+def sw_walk(bt, lastrow, lastcol, reflen, altlen, strategy):
+    """Each lane's maximum, merged CIGAR runs and offset, from
+    :func:`sw_forward`'s outputs as they lie, in the layout of
+    ``ops.sw.sw_walk``: ``(2 + cap, P)`` int32, row 0 the run counts, row 1
+    the offsets, row ``2 + k`` each lane's ``k``-th run (``count << 4 |
+    op``), ``cap = ops.sw.walk_capacity(N, M)``.  The kernel leaves the
+    rows past a lane's count as they were; the twin zeroes them.
+    ``strategy`` is an ``OverhangStrategy`` value (9-12)."""
+    device = bt.device
+    _check("bt", bt, torch.uint8, 3, device)
+    _check("lastrow", lastrow, torch.int32, 2, device)
+    _check("lastcol", lastcol, torch.int32, 2, device)
+    _check("reflen", reflen, torch.int32, 1, device)
+    _check("altlen", altlen, torch.int32, 1, device)
+    P, half, M = bt.shape
+    N = 2 * half
+    if (tuple(lastrow.shape) != (M, P) or tuple(lastcol.shape) != (P, N)
+            or reflen.shape[0] != P or altlen.shape[0] != P):
+        raise ValueError("bt, lastrow, lastcol, reflen and altlen must be one launch's")
+    if int(strategy) not in (sw_ops.SOFTCLIP, sw_ops.INDEL, sw_ops.LEADING_INDEL,
+                             sw_ops.IGNORE):
+        raise ValueError(f"unknown overhang strategy {strategy}")
+    if device.type == "cpu":
+        return sw_ops.sw_walk(bt, lastrow, lastcol, reflen, altlen, strategy)
+    if device.type != "cuda":
+        raise ValueError(f"no Smith-Waterman kernel for device {device}")
+
+    lib = cuda_build.load()
+    cap = sw_ops.walk_capacity(N, M)
+    out = torch.empty((2 + cap, P), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = lib.gkl_sw_walk(bt.data_ptr(), N, M, lastrow.data_ptr(), lastcol.data_ptr(),
+                             reflen.data_ptr(), altlen.data_ptr(), P, int(strategy), cap,
+                             out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sw_walk kernel launch failed: CUDA error {rc}")
+    debug.after_launch(device)
+    profiling.METRICS.launch("sw_walk")
+    return out
+
+
+def walk_mismatches(a, b) -> int:
+    """Lanes where two :func:`sw_walk` results differ in their run count,
+    offset or any run below the count.  Runs on the results' device."""
+    k = torch.arange(a.shape[0] - 2, device=a.device)[:, None]
+    live = k < a[0][None, :]
+    runs = ((a[2:] != b[2:]) & live).any(dim=0)
+    return int(((a[0] != b[0]) | (a[1] != b[1]) | runs).sum())
 
 
 def in_range_mismatches(a, b, reflen, altlen) -> int:

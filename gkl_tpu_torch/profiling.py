@@ -22,10 +22,13 @@ or alignments).  Their stages, each a :func:`span`:
   choice, the scatter) with ``pairhmm_rescue`` inside it (items = lanes
   recomputed on the f64 oracle);
 * SW: ``sw_pack`` (validation, the shape merge, each lane chunk's
-  packing), ``sw_dispatch`` (upload and launch), ``sw_wait``,
-  ``sw_bt_copy`` (items = backtrack bytes brought to the host),
-  ``sw_host_walk`` (items = lanes walked), ``sw_scalar`` (items = pairs
-  on the host's scalar aligner);
+  packing), ``sw_dispatch`` (upload, the DP launch and the walk's),
+  ``sw_wait``, ``sw_bt_copy`` (items = bytes brought to the host: the
+  walked runs, counts and offsets; on a mesh the backtrack slabs),
+  ``sw_host_walk`` (items = lanes written out as CIGAR strings; on a mesh
+  walked on the host), ``sw_scalar`` (items = pairs on the host's scalar
+  aligner); and a counter, no span: ``sw_card_walk``, the lanes the
+  device walked where the DP left the backtrack;
 * PDHMM: ``pdhmm_plan`` (the cross product as indices into the unique
   planes, the lane order, the slices), ``pdhmm_pack`` (a slice's unique
   planes and packing), ``pdhmm_wait`` (upload, kernel and the copy back),
@@ -39,7 +42,8 @@ or alignments).  Their stages, each a :func:`span`:
 
 Launches are counted whatever the switch, as ``launch.<kernel>`` (calls =
 launches) in :meth:`KernelMetrics.snapshot`: ``pairhmm_scaled``,
-``pairhmm_rows``, ``pairhmm_cols``, ``sw_forward`` and ``pdhmm``.
+``pairhmm_rows``, ``pairhmm_cols``, ``sw_forward``, ``sw_walk`` and
+``pdhmm``.
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@ import torch
 
 import chip_smoke
 import golden
+import torch_sw_walk_cases as walk_cases
 from torch_cases import flag_cases
 from gkl_tpu_torch import (HaplotypeData, PairHMM, PairHMMNativeArguments,
                            ReadData, cuda_build, native_lib)
@@ -322,6 +323,143 @@ def test_sw_api_on_card_matches_scalar(cuda_device):
             [(w.cigar, w.alignment_offset) for w in want]
 
 
+def _walk_three_ways(dev, arrays, strategy):
+    """The walk kernel on card tensors against its twin on the same
+    tensors (every lane: count, offset, runs) and the native runtime's walk
+    (CIGAR, offset and run count of every lane in range); one launch."""
+    from gkl_tpu_torch.ops import sw as sw_ops
+    from gkl_tpu_torch.ops import sw_cuda
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    launches = sw_cuda.WALK_LAUNCHES
+    got = sw_cuda.sw_walk(*args, strategy)
+    assert sw_cuda.WALK_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    want = sw_ops.sw_walk(*args, strategy)
+    assert sw_cuda.walk_mismatches(got, want) == 0
+    native = walk_cases.native_walk(arrays, strategy)
+    for (cigar, offset, runs), w in zip(walk_cases.walked(got), native):
+        if w is None:
+            assert (offset, runs) == (0, 0)
+        else:
+            assert (cigar, offset, runs) == (w[0], w[1], walk_cases.cigar_runs(w[0]))
+    return got
+
+
+@pytest.mark.parametrize("strategy", [9, 10, 11, 12])
+@pytest.mark.parametrize("case", walk_cases.WALK_CASES)
+def test_sw_walk_kernel_matches_twin_and_native(cuda_device, case, strategy):
+    """The walk kernel equals its twin and ``sw_postprocess_packed`` on the
+    CPU tests' random packed backtracks: ties, n = 1, m = 1, padded lanes,
+    both nibble parities, runs past 255, no step walked."""
+    _walk_three_ways(cuda_device, walk_cases.walk_case(case, seed=len(case) + strategy),
+                     strategy)
+
+
+@pytest.mark.parametrize("strategy", [9, 10])
+def test_sw_walk_kernel_on_5kb_lanes(cuda_device, strategy):
+    """A 5-kb x 5-kb forward launch (HiFi reads against long haplotypes,
+    beside short lanes) walked by the kernel, the twin and the native
+    runtime alike."""
+    from gkl_tpu_torch.ops import sw_cuda
+
+    rng = np.random.default_rng(strategy)
+    N = M = 5120
+    ref = BASES[rng.integers(0, 4, (N, 8))]
+    alt = np.resize(ref[60:], (M, 8)).copy()
+    mut = rng.random((M, 8)) < 0.01
+    alt[mut] = BASES[rng.integers(0, 4, int(mut.sum()))]
+    alt[2000:2003] = alt[2005:2008]               # a few indel-like runs
+    rl = np.array([5120, 5000, 4999, 300, 5120, 1, 4096, 2500], np.int32)
+    al = np.array([5060, 4900, 5120, 150, 1, 4800, 4000, 5120], np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in (ref, alt, rl, al)]
+    fwd = sw_cuda.sw_forward(*args, *SW_GATK, indel_boundary=strategy == 10)
+    arrays = tuple(t.cpu().numpy() for t in fwd) + (rl, al)
+    got = _walk_three_ways(cuda_device, arrays, strategy)
+    assert int(got[0].max()) > 2
+
+
+def _bench_regions():
+    """One region of each benchmark configuration from its generator, as
+    (name, refs, alts): each read against one of the two haplotypes the
+    sample's reads come from; the deep region cut to 512 reads and the
+    long one to 64 short reads and 3 HiFi reads, for the CPU's twin."""
+    from bench_port.harness import spec
+
+    out = []
+    for cell, n_haps, keep in (("hc_wgs30x.region", 3, None), ("hc_deep_panel.region", 8, 512),
+                               ("hc_long_region.region", 4, 64)):
+        c = spec.load_cell(cell)
+        rng = np.random.default_rng(19)
+        raw = c.generator().region(rng, c.config, c.config["max_assembly_region_size"], n_haps)
+        reads = [seq for seq, _, _ in raw["reads"]]
+        short = [k for k, r in enumerate(reads) if len(r) <= 300]
+        long = [k for k, r in enumerate(reads) if len(r) > 300]
+        pick = short[:keep] + long[:3] if keep else list(range(len(reads)))
+        refs = [raw["haps"][k % 2] for k in pick]
+        out.append((cell.split(".")[0], refs, [reads[k] for k in pick]))
+    return out
+
+
+def test_sw_api_on_card_matches_cpu_on_bench_regions(cuda_device, monkeypatch):
+    """``SmithWaterman()`` on CUDA against ``SmithWaterman(device="cpu")``
+    (the twins) on regions drawn by ``bench_port/gen`` for all three
+    configurations: the same CIGARs and offsets; one walk launch a forward
+    launch, and no tensor as large as a launch's backtrack copied to the
+    host."""
+    from gkl_tpu_torch import api_sw
+    from gkl_tpu_torch.ops import sw_cuda
+
+    bt_bytes, copied = [], []
+    real_forward = sw_cuda.sw_forward
+
+    def forward(*a, **kw):
+        out = real_forward(*a, **kw)
+        bt_bytes.append(out[0].numel())
+        return out
+
+    def to_host(t):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            copied.append(t.numel() * t.element_size())
+
+    real_copy, real_cpu, real_to = torch.Tensor.copy_, torch.Tensor.cpu, torch.Tensor.to
+
+    def copy_(self, src, *a, **kw):
+        if self.device.type == "cpu":
+            to_host(src)
+        return real_copy(self, src, *a, **kw)
+
+    def cpu(self, *a, **kw):
+        to_host(self)
+        return real_cpu(self, *a, **kw)
+
+    def to(self, *a, **kw):
+        out = real_to(self, *a, **kw)
+        if out.device.type == "cpu":
+            to_host(self)
+        return out
+
+    params = api_sw.SWParameters(10, -15, -30, -5)
+    for name, refs, alts in _bench_regions():
+        want = api_sw.SmithWaterman(device="cpu").align_batch(refs, alts, params,
+                                                              api_sw.OverhangStrategy.SOFTCLIP)
+        bt_bytes.clear()
+        copied.clear()
+        fwd, walks = sw_cuda.LAUNCHES, sw_cuda.WALK_LAUNCHES
+        with monkeypatch.context() as mp:
+            mp.setattr(sw_cuda, "sw_forward", forward)
+            mp.setattr(torch.Tensor, "copy_", copy_)
+            mp.setattr(torch.Tensor, "cpu", cpu)
+            mp.setattr(torch.Tensor, "to", to)
+            got = api_sw.SmithWaterman(device=cuda_device).align_batch(
+                refs, alts, params, api_sw.OverhangStrategy.SOFTCLIP)
+        assert [(g.cigar, g.alignment_offset) for g in got] == \
+            [(w.cigar, w.alignment_offset) for w in want], name
+        launches = sw_cuda.LAUNCHES - fwd
+        assert launches == len(bt_bytes) > 0 and sw_cuda.WALK_LAUNCHES - walks == launches, name
+        assert copied and max(copied) < min(bt_bytes), (name, copied, bt_bytes)
+
+
 def _pdhmm_batch(R, H, P, seed):
     rng = np.random.default_rng(seed)
     hap = BASES[rng.integers(0, 4, (H, P))]
@@ -543,7 +681,8 @@ def test_pdhmm_pallas_level_runs_on_card(cuda_device):
     assert pdhmm_cuda.LAUNCHES == launches + 1 and np.isfinite(got).all()
 
 
-@pytest.mark.parametrize("kernel", ["sw_forward", "pdhmm", "pairhmm_rows", "pairhmm_cols"])
+@pytest.mark.parametrize("kernel", ["sw_forward", "sw_walk", "pdhmm", "pairhmm_rows",
+                                    "pairhmm_cols"])
 def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kernel):
     """With no kernel to build, the SW, PDHMM, rows and cols wrappers raise
     on CUDA tensors and never fall back to their twins."""
@@ -557,6 +696,10 @@ def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kerne
         args = [torch.from_numpy(a).to(cuda_device) for a in _sw_batch(8, 8, 8, seed=0)]
         with pytest.raises(native_lib.BuildError):
             sw_cuda.sw_forward(*args, 1, -1, -2, -1, indel_boundary=False)
+    elif kernel == "sw_walk":
+        args = [torch.from_numpy(a).to(cuda_device) for a in walk_cases.walk_case("random")]
+        with pytest.raises(native_lib.BuildError):
+            sw_cuda.sw_walk(*args, 9)
     elif kernel == "pdhmm":
         t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(8, 8, 8, seed=0).items()}
         with pytest.raises(native_lib.BuildError):

@@ -4,7 +4,8 @@ Every source that ``native_lib`` and ``cuda_build`` compile lies under
 ``gkl_tpu_torch/``.  The port's copies of the JAX package's runtime sources
 (``gkl_tpu_torch/native/``) are byte-identical to their originals in
 ``gkl_tpu/native/``, so the f64 oracles that the port's rescues run are the
-reference's.  The build settings the port shares with the JAX package are
+reference's; beside them the port has one source of its own
+(``sw_cigar.cc``).  The build settings the port shares with the JAX package are
 honoured: ``GKL_TPU_CACHE_DIR`` (where every library builds) and
 ``GKL_TPU_LIBRARY_PATH`` (prebuilt host libraries; never the kernels).
 Nothing here compiles a kernel: the build calls are recorded and stopped
@@ -23,7 +24,11 @@ from gkl_tpu_torch import cuda_build, native_lib
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "gkl_tpu_torch")
 ORIGINALS = os.path.join(ROOT, "gkl_tpu", "native")
-SOURCES = sorted({s for sources in native_lib._SRC.values() for s in sources})
+# the port's own host source (the CIGAR strings of a device-walked chunk),
+# which has no original; every other source is a copy
+PORT_SOURCES = ["sw_cigar.cc"]
+SOURCES = sorted({s for sources in native_lib._SRC.values() for s in sources}
+                 - set(PORT_SOURCES))
 
 
 class _Stop(Exception):
@@ -56,11 +61,14 @@ def test_source_dirs_are_the_ports():
 
 def test_copies_are_the_runtime_sources():
     """The port's copy holds the seven sources its libraries build, and
-    the JAX package has no runtime source that the port lacks."""
+    the JAX package has no runtime source that the port lacks; beside them
+    the port has only its own ``PORT_SOURCES``, which a library builds."""
     assert len(SOURCES) == 7
     copied = sorted(f for f in os.listdir(native_lib.NATIVE_SRC_DIR) if f.endswith(".cc"))
     original = sorted(f for f in os.listdir(ORIGINALS) if f.endswith(".cc"))
-    assert copied == original == SOURCES
+    assert sorted(set(copied) - set(PORT_SOURCES)) == original == SOURCES
+    assert set(PORT_SOURCES) <= set(copied) and not set(PORT_SOURCES) & set(original)
+    assert all(any(s in srcs for srcs in native_lib._SRC.values()) for s in PORT_SOURCES)
 
 
 @pytest.mark.parametrize("name", SOURCES)
@@ -94,7 +102,7 @@ def test_cuda_build_reads_only_the_port(monkeypatch):
     [(name, sources)] = seen
     assert name == "gkl_tpu_torch_kernels"
     assert sorted(os.path.basename(s) for s in sources) == [
-        "pairhmm_cols.cu", "pairhmm_scaled.cu", "pdhmm.cu", "sw_forward.cu"]
+        "pairhmm_cols.cu", "pairhmm_scaled.cu", "pdhmm.cu", "sw_forward.cu", "sw_walk.cu"]
     assert all(_in_port(s) for s in sources), sources
 
 

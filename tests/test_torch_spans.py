@@ -210,7 +210,9 @@ def test_sw_stages(monkeypatch):
     """Four shapes, one lane chunk each, and one pair on the scalar
     aligner: one packing of the call and one a chunk; ``smithwaterman``,
     ``sw_bt_copy`` and ``sw_host_walk`` keep their items (alignments,
-    backtrack bytes, device lanes walked)."""
+    bytes of the walk's counts, offsets and runs brought to the host, lanes
+    written out), and ``sw_card_walk`` counts the lanes the device walked
+    (the backtrack stays there)."""
     monkeypatch.setenv("GKL_TPU_METRICS", "1")
     refs, alts = _sw_pairs()
     t0 = time.perf_counter()
@@ -223,11 +225,13 @@ def test_sw_stages(monkeypatch):
     merged = api_sw.merge_shape_groups(shapes)
     n = len(merged)
     assert n == 4
-    bt_bytes = sum(batch.bucket_lanes(len(idxs)) * (N // 2) * M for (N, M), idxs in merged)
+    # every CIGAR here fits the first copy's run rows
+    copied = sum(batch.bucket_lanes(len(idxs)) * (2 + api_sw.SW_RUNS_FIRST_COPY) * 4
+                 for _, idxs in merged)
     assert _counts(snap) == {
         "smithwaterman": (1, 7), "sw_pack": (n + 1, 6), "sw_dispatch": (n, 6),
-        "sw_wait": (n, 6), "sw_bt_copy": (n, bt_bytes), "sw_host_walk": (n, 6),
-        "sw_scalar": (1, 1)}
+        "sw_wait": (n, 6), "sw_card_walk": (n, 6), "sw_bt_copy": (n, copied),
+        "sw_host_walk": (n, 6), "sw_scalar": (1, 1)}
     assert snap["smithwaterman"]["cells"] == sum(len(r) * len(a) for r, a in zip(refs, alts))
     _stages_within_call(snap, "smithwaterman", wall)
 

@@ -3,6 +3,7 @@ oracle, the plain twin of the CUDA kernel against the jnp engine and the
 Pallas kernels in interpret mode, the API, and the shape-bucket merge."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ from gkl_tpu_torch import api_sw as tapi
 from gkl_tpu_torch.ops import sw as tsw
 from gkl_tpu_torch.ops import sw_cuda
 from gkl_tpu_torch.ops import sw_ref as tref
+
+import torch_sw_walk_cases as walk_cases
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 GATK = (200, -150, -260, -11)
@@ -304,3 +307,95 @@ def test_pairs_past_the_budget_take_the_scalar_aligner(monkeypatch):
     for r, a, res in zip(refs, alts, got):
         want = tref.sw_align(r, a, *GATK, 9)
         assert (res.cigar, res.alignment_offset) == (want.cigar, want.offset)
+
+
+@pytest.mark.parametrize("strategy", list(tapi.OverhangStrategy))
+@pytest.mark.parametrize("case", walk_cases.WALK_CASES)
+def test_walk_twin_matches_native_walk(case, strategy):
+    """``ops.sw.sw_walk`` (the walk kernel's twin) against the native
+    runtime's ``sw_postprocess_packed`` lane by lane on random packed
+    backtracks: the same CIGAR, offset and number of runs; count 0 and
+    offset 0 for a lane whose lengths are out of range.  IGNORE's "M when
+    no op was walked" needs a start in row 0 past column 0, which no
+    maximum gives (a lastrow cell has i = n >= 1); ``no_step`` covers the
+    start at (0, 0), where no step is walked (INDEL starts at (n, m))."""
+    arrays = walk_cases.walk_case(case, seed=len(case) + int(strategy))
+    walk = tsw.sw_walk(*(torch.from_numpy(a) for a in arrays), strategy)
+    cap = tsw.walk_capacity(2 * arrays[0].shape[1], arrays[0].shape[2])
+    assert tuple(walk.shape) == (2 + cap, arrays[0].shape[0])
+    got = walk_cases.walked(walk)
+    want = walk_cases.native_walk(arrays, strategy)
+    for (cigar, offset, runs), w in zip(got, want):
+        if w is None:
+            assert (cigar, offset, runs) == ("", 0, 0)
+        else:
+            assert (cigar, offset, runs) == (w[0], w[1], walk_cases.cigar_runs(w[0]))
+    if case == "long_runs":
+        assert max(int(r[:-1]) for c, _, _ in got for r in re.findall(r"\d+[MIDS]", c)) > 255
+    if case == "no_step" and strategy != tapi.OverhangStrategy.INDEL:
+        assert all(runs <= 1 for _, _, runs in got)  # INDEL starts at (n, m) whatever
+
+
+def test_walk_wrapper_cpu_runs_twin():
+    """``sw_cuda.sw_walk`` on CPU tensors is the twin and counts no
+    launch; it refuses tensors of two launches and unknown strategies;
+    ``walk_mismatches`` counts lanes, reading runs only below a lane's
+    count."""
+    args = [torch.from_numpy(a) for a in walk_cases.walk_case("random")]
+    launches = sw_cuda.WALK_LAUNCHES
+    got = sw_cuda.sw_walk(*args, tapi.OverhangStrategy.SOFTCLIP)
+    assert sw_cuda.WALK_LAUNCHES == launches
+    want = tsw.sw_walk(*args, 9)
+    assert torch.equal(got, want) and sw_cuda.walk_mismatches(got, want) == 0
+    other = want.clone()
+    lane = int(torch.nonzero(want[0] > 0)[0])
+    other[2 + int(want[0, lane]), lane] += 1        # past the count: not read
+    assert sw_cuda.walk_mismatches(other, want) == 0
+    other[2, lane] += 16
+    other[1, lane + 1] += 1
+    assert sw_cuda.walk_mismatches(other, want) == 2
+    with pytest.raises(ValueError, match="one launch"):
+        sw_cuda.sw_walk(args[0], args[1][:-1], *args[2:], 9)
+    with pytest.raises(ValueError, match="strategy"):
+        sw_cuda.sw_walk(*args, 8)
+
+
+def test_format_cigars_shares_equal_lanes():
+    """Lanes with equal runs get equal strings; rows past a lane's count
+    are never read; runs past 255 and every op letter."""
+    runs = np.array([[150 << 4 | 0, 5 << 4 | 9, 150 << 4 | 0, 3 << 4 | 1],
+                     [0, 300 << 4 | 0, 99, 1 << 4 | 0],
+                     [0, 2 << 4 | 2, 7, 5]], np.int32)
+    counts = np.array([1, 3, 1, 2])
+    assert tapi.format_cigars(runs, counts) == ["150M", "5S300M2D", "150M", "3I1M"]
+    assert tapi.format_cigars(runs[:, :0], counts[:0]) == []
+
+
+def test_api_copies_the_runs_again_past_the_first_rows(monkeypatch):
+    """With one run row in the first copy, a chunk whose longest CIGAR has
+    more runs copies again up to it: the results stay the scalar
+    aligner's, and ``sw_bt_copy``'s items are the rows of the longest."""
+    from gkl_tpu_torch import profiling
+
+    monkeypatch.setattr(tapi, "SW_RUNS_FIRST_COPY", 1)
+    monkeypatch.setenv("GKL_TPU_METRICS", "1")
+    rng = np.random.default_rng(7)
+    refs = [BASES[rng.integers(0, 4, 60)] for _ in range(12)]
+    # 44-base windows with two bases deleted and one inserted: one bucket
+    # (64, 48), 16 lanes, and CIGARs of several runs
+    alts = [np.concatenate([r[5:20], r[22:35], BASES[rng.integers(0, 4, 1)], r[35:50]])
+            for r in refs]
+    profiling.METRICS.reset()
+    try:
+        got = tapi.SmithWaterman(device="cpu").align_batch(
+            refs, alts, tapi.SWParameters(*GATK), tapi.OverhangStrategy.SOFTCLIP)
+        snap = profiling.METRICS.snapshot()
+    finally:
+        profiling.METRICS.reset()
+    want = tapi.sw_align_scalar_batch(refs, alts, tapi.SWParameters(*GATK), 9)
+    assert [(g.cigar, g.alignment_offset) for g in got] == \
+        [(w.cigar, w.alignment_offset) for w in want]
+    longest = max(walk_cases.cigar_runs(w.cigar) for w in want)
+    assert longest > 1 and snap["sw_card_walk"]["items"] == len(refs)
+    assert snap["sw_bt_copy"]["calls"] == 1
+    assert snap["sw_bt_copy"]["items"] == (2 + longest) * 16 * 4
