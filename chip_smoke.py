@@ -195,23 +195,6 @@ RAW_BATCH_CPU_LANES = 256
 PROFILE_CSV_BYTES = 4 << 20
 TRACE_KERNEL_NAMES = {"pairhmm_scaled": "pairhmm_kernel", "sw_forward": "sw_forward_kernel",
                       "sw_walk": "sw_walk_kernel", "pdhmm": "pdhmm_kernel"}
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s.  int32 (the SW
-# cells): the Hopper white paper's 64 INT32 units per SM, x 132 SMs x the
-# 1.98 GHz boost clock.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-PEAK_INT32_PER_S = 64 * 132 * 1.98e9
-# operations per DP cell, counted from each kernel's inner loop (f32
-# products and sums; SW: int32 sums, maximums, comparisons and ORs), and
-# the bytes of the tables each kernel reads.  The PairHMM kernels also sum
-# M+X over the haplen columns of row rslen-1 for the result: 2 operations
-# a column of that one row (RESULT_OPS_PER_COLUMN).
-OPS_PER_CELL = {"pairhmm_scaled": 11, "pairhmm_rows": 11, "pairhmm_cols": 11,
-                "sw_forward": 13, "pdhmm": 12}
-RESULT_OPS_PER_COLUMN = 2
-TABLE_BYTES = {"pairhmm_scaled": 33536, "pairhmm_rows": 33536, "pairhmm_cols": 33536,
-               "sw_forward": 0, "pdhmm": 131584}
 
 
 def log(phase: str, **fields) -> None:
@@ -235,10 +218,17 @@ def bound(kernel, io_bytes, cells, result_columns=0):
     over the memory rate and its operations (cells the data needs x
     operations per cell, plus the PairHMM result's sum over
     ``result_columns``, the lanes' haplen summed) over the peak rate of
-    their type."""
-    peak = PEAK_INT32_PER_S if kernel == "sw_forward" else PEAK_F32_PER_S
-    t_bytes = (io_bytes + TABLE_BYTES[kernel]) / PEAK_BYTES_PER_S
-    t_ops = (OPS_PER_CELL[kernel] * cells + RESULT_OPS_PER_COLUMN * result_columns) / peak
+    their type.  Peaks, operations and table bytes are the benchmark's
+    (``bench_port/harness/roofline.py``)."""
+    from bench_port.harness import roofline as r
+
+    family = kernel.split("_")[0]  # pairhmm, sw or pdhmm
+    ops = {"pairhmm": r.PAIRHMM_OPS_PER_CELL, "sw": r.SW_OPS_PER_CELL,
+           "pdhmm": r.PDHMM_OPS_PER_CELL}[family]
+    tables = {"pairhmm": r.PAIRHMM_TABLE_BYTES, "pdhmm": r.PDHMM_TABLE_BYTES}.get(family, 0)
+    peak = r.PEAK_INT32_PER_S if family == "sw" else r.PEAK_F32_PER_S
+    t_bytes = (io_bytes + tables) / r.PEAK_BYTES_PER_S
+    t_ops = (ops * cells + r.PAIRHMM_OPS_PER_RESULT_COLUMN * result_columns) / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1832,8 +1822,11 @@ def phase_multi_device(c, region, long_lik, raw_12a):
     shards on one card are not two cards).  Phase 11's corpus through
     ``PairHMM(mesh=)``, ``SmithWaterman(mesh=)`` and ``PDHMM(mesh=)`` in
     ``run_region``'s order, three times, each run's launches per kernel
-    counted and the first run's per-shard launches and device times read
-    from CUDA events; its outputs must equal phase 11's bit for bit (the
+    counted and the first run's per-shard launches and device times of the
+    PairHMM and PDHMM kernels read from CUDA events (SW's forward and walk
+    run once a shard a chunk, outside ``launch_lanes``, so their counts
+    must be equal multiples of the mesh's size); its outputs must equal
+    phase 11's bit for bit (the
     likelihoods, the CIGARs and offsets, the PDHMM likelihoods) with the
     same rescued lanes.  Phase 13's long region through ``PairHMM(mesh=)``
     (the column kernel sharded) must equal phase 13's likelihoods, and
@@ -1870,7 +1863,8 @@ def phase_multi_device(c, region, long_lik, raw_12a):
         m = profiling.METRICS.snapshot()
         runs.append(dict(outputs=outputs, wall_s=sum(stage_s), stage_s=stage_s, trace=trace,
                          launches={"pairhmm_scaled": pairhmm_cuda.LAUNCHES,
-                                   "sw_forward": sw_cuda.LAUNCHES, "pdhmm": pdhmm_cuda.LAUNCHES},
+                                   "sw_forward": sw_cuda.LAUNCHES,
+                                   "sw_walk": sw_cuda.WALK_LAUNCHES, "pdhmm": pdhmm_cuda.LAUNCHES},
                          pairhmm_rescued=m.get("pairhmm_rescue", {}).get("items", 0),
                          pdhmm_rescued=m.get("pdhmm_rescue", {}).get("items", 0)))
     os.environ.pop("GKL_TPU_METRICS")
@@ -1894,11 +1888,14 @@ def phase_multi_device(c, region, long_lik, raw_12a):
     if (first["pairhmm_rescued"], first["pdhmm_rescued"]) != (region["pairhmm_rescued"],
                                                               region["pdhmm_rescued"]):
         raise AssertionError("the mesh rescued other lanes than phase 11")
-    for name in ("pairhmm_scaled", "sw_forward", "pdhmm"):
+    for name in ("pairhmm_scaled", "pdhmm"):
         ran = [shards.get(f"{name}_shard{k}", {}).get("launches", 0) for k in range(mesh.size)]
         if min(ran) <= 0 or sum(ran) != first["launches"][name]:
             raise AssertionError(f"{name}: launches per shard {ran}, "
                                  f"{first['launches'][name]} in all")
+    sw_ran = (first["launches"]["sw_forward"], first["launches"]["sw_walk"])
+    if sw_ran[0] <= 0 or sw_ran[0] != sw_ran[1] or sw_ran[0] % mesh.size:
+        raise AssertionError(f"SW on {mesh.size} shards: (forward, walk) launches {sw_ran}")
 
     # the long region (column kernel) and _raw_batch (rows kernel) sharded
     haps, reads, _ = long_region()

@@ -6,10 +6,11 @@ order (``pairhmm/JavaData.h:84-106``), computed in float32 with the lanes
 whose result is deep or untrustworthy recomputed in exact float64
 (``pairhmm/IntelPairHmm.cc:125-181``).
 
-Every float32 shape bucket goes to one kernel launch on ``PairHMM.device``
-(CUDA by default, the plain PyTorch twins when the caller asks for
-``device="cpu"``), or, with a ``mesh``, to one launch on each of its lane
-slabs (``gkl_tpu_torch.parallel``), routed as the JAX package routes it:
+Every float32 shape bucket goes to one kernel launch on each lane slab of
+the engine's mesh through ``parallel.mesh.launch_lanes``: the caller's
+``mesh``, or without one a one-entry mesh of ``PairHMM.device`` (CUDA by
+default, the plain PyTorch twins when the caller asks for
+``device="cpu"``).  A bucket is routed as the JAX package routes it:
 haplotype buckets up to ``PALLAS_MAX_HAP`` to the scaled kernel
 (``ops/pairhmm_cuda.py``), longer ones to the plain-f32 column kernel
 (``ops/pairhmm_cols.py``) with every lane below ``MIN_ACCEPTED`` rescued.
@@ -221,48 +222,22 @@ class PairHMM:
                                      * pk.rslen[lanes].astype(np.int64)))
         return res
 
-    def _launch(self, arrays: dict, kernel) -> mesh_mod.Launch:
-        """Run ``kernel(**planes)`` on ``arrays`` (numpy) without waiting.
-        On CUDA the planes go up from pinned buffers with non-blocking
-        copies on the current stream, and the result comes back the same
-        way; the returned handle's event marks its arrival."""
-        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
-        if self.device.type != "cuda":
-            out = kernel(**{k: v.to(self.device) for k, v in host.items()}).cpu()
-            return mesh_mod.Launch([out], (0,))
-        pinned = {k: v.pin_memory() for k, v in host.items()}
-        dev = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
-        out = kernel(**dev)
-        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host_out.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(out.device))
-        return mesh_mod.Launch([host_out], (0,), [event], keep=(pinned, dev, out))
-
-    def _dispatch(self, pk: batch_mod.PackedPairsIndexed, kernel) -> mesh_mod.Launch:
-        """Launch ``kernel`` (``pairhmm_scaled``, ``pairhmm_rows`` or
-        ``pairhmm_cols``) on one indexed batch without waiting: on the
-        mesh, one launch per lane slab (``parallel.mesh.dispatch_pairhmm``)."""
-        if self.mesh is not None:
-            return mesh_mod.dispatch_pairhmm(self.mesh, pk, kernel)
-        arrays = {"hap_u": pk.hap_u, "readq_u": pk.readq_u, "ridx": pk.ridx,
-                  "hidx": pk.hidx, "haplen": pk.haplen, "rslen": pk.rslen}
-        if pk.quals_u is not None:
-            arrays["quals_u"] = pk.quals_u
-        return self._launch(arrays, lambda **t: kernel(**t, const_quals=pk.const_quals))
+    @property
+    def _shards(self) -> mesh_mod.Mesh:
+        """The mesh batches run on: ``mesh``, or one entry of ``device``."""
+        return mesh_mod.engine_mesh(self.mesh, self.device)
 
     def _dispatch_group(self, idxs, pk: batch_mod.PackedPairsIndexed):
-        """Launch one read-group x hap-group batch without waiting: a
+        """Launch one read-group x hap-group batch without waiting, one
+        launch per lane slab (``parallel.mesh.dispatch_pairhmm``): a
         ``"scaled"`` work item on the scaled kernel, or past
         ``PALLAS_MAX_HAP`` the JAX package's plain-f32 route
         (gkl_tpu/api.py:703-712), an ``"f32"`` item on the column kernel."""
         if pk.hap_u.shape[0] <= self.PALLAS_MAX_HAP:
-            return ("scaled", idxs, pk, self._dispatch(pk, pairhmm_cuda.pairhmm_scaled))
-        return ("f32", idxs, pk, self._dispatch(pk, pairhmm_cols.pairhmm_cols))
-
-    def _devices(self) -> tuple:
-        """The devices this engine's batches run on: the mesh's, or its own."""
-        return self.mesh.devices if self.mesh is not None else (self.device,)
+            kind, kernel = "scaled", pairhmm_cuda.pairhmm_scaled
+        else:
+            kind, kernel = "f32", pairhmm_cols.pairhmm_cols
+        return (kind, idxs, pk, mesh_mod.dispatch_pairhmm(self._shards, pk, kernel))
 
     def _raw_batch(self, packed: batch_mod.PackedPairs, dtype: str = "float32") -> np.ndarray:
         """Forward probabilities of a dense batch's real lanes: the
@@ -270,24 +245,21 @@ class PairHMM:
 
         ``"float32"``: the plain-f32 rows kernel for haplotype buckets up
         to PALLAS_MAX_HAP and the column kernel past it, lane-sharded on
-        the mesh as ``gkl_tpu/api.py:404-431``.  On one device the dense
-        planes go in as an indexed batch with ``ridx = hidx = 0..P-1``.
+        the engine's mesh as ``gkl_tpu/api.py:404-431``; each slab goes in
+        as an indexed batch with ``ridx = hidx = 0..n-1``.
 
         ``"float64"``: the plain engine ``ops.pairhmm.pairhmm_raw`` in f64
-        (the JAX package's jnp f64 engine, ``gkl_tpu/api.py:485-498``) on
-        the engine's device; the H100 runs f64 at full range, so nothing
-        moves to the host.  On a mesh it runs unsharded on the mesh's
-        first entry of this process, as the JAX package shards only
-        float32 (``gkl_tpu/api.py:404``).  The rescue (``_f64_lanes``)
-        stays on the native oracle, as in the JAX package."""
+        (the JAX package's jnp f64 engine, ``gkl_tpu/api.py:485-498``),
+        unsharded on the first entry of this process (the engine's device
+        without a mesh), as the JAX package shards only float32
+        (``gkl_tpu/api.py:404``); the H100 runs f64 at full range, so
+        nothing moves to the host.  The rescue (``_f64_lanes``) stays on
+        the native oracle, as in the JAX package."""
         if dtype == "float64":
-            if self.mesh is not None:
-                local = self.mesh.local_entries()
-                if not local:
-                    raise ValueError("this process owns no entry of the mesh")
-                dev = local[0][1]
-            else:
-                dev = self.device
+            local = self._shards.local_entries()
+            if not local:
+                raise ValueError("this process owns no entry of the mesh")
+            dev = local[0][1]
             planes = [torch.from_numpy(np.ascontiguousarray(getattr(packed, f))).to(dev)
                       for f in ("hap", "read", "q", "iq", "dq", "gcp", "haplen", "rslen")]
             raw = pairhmm_ops.pairhmm_raw(*planes, dtype="float64")
@@ -297,19 +269,10 @@ class PairHMM:
         rows = packed.hap.shape[0] <= self.PALLAS_MAX_HAP
         engine = debug.engine_name(*(("pairhmm_rows kernel", "pairhmm_raw twin") if rows else
                                      ("pairhmm_cols kernel", "pairhmm_raw_cols twin")),
-                                   self._devices())
-        if self.mesh is not None:
-            sharded = (mesh_mod.pairhmm_raw_pallas_sharded if rows
-                       else mesh_mod.pairhmm_raw_pallas_cols_sharded)
-            raw = sharded(self.mesh, packed)[: packed.n_real]
-        else:
-            lanes = np.arange(packed.hap.shape[1], dtype=np.int32)
-            pk = batch_mod.PackedPairsIndexed(
-                packed.hap, np.stack([packed.read, packed.q]),
-                np.stack([packed.iq, packed.dq, packed.gcp]), None, lanes, lanes,
-                packed.haplen, packed.rslen, packed.n_real)
-            kernel = pairhmm_cuda.pairhmm_rows if rows else pairhmm_cols.pairhmm_cols
-            raw = self._dispatch(pk, kernel).wait()[: packed.n_real]
+                                   self._shards.devices)
+        sharded = (mesh_mod.pairhmm_raw_pallas_sharded if rows
+                   else mesh_mod.pairhmm_raw_pallas_cols_sharded)
+        raw = sharded(self._shards, packed)[: packed.n_real]
         debug.check_nan(raw, packed.n_real, engine)
         return raw
 
@@ -318,7 +281,7 @@ class PairHMM:
         lane below MIN_ACCEPTED, as ``gkl_tpu/api.py:820-831``."""
         raw32 = np.asarray(raw, np.float32)[: packed.n_real]
         debug.check_nan(raw32, packed.n_real, debug.engine_name(
-            "pairhmm_cols kernel", "pairhmm_raw_cols twin", self._devices()))
+            "pairhmm_cols kernel", "pairhmm_raw_cols twin", self._shards.devices))
         return pairhmm_ops.pairhmm_log10_from_raw_f32(raw32), raw32 < MIN_ACCEPTED
 
     def _forward_scaled_finalize(self, pk, stacked: np.ndarray):
@@ -327,7 +290,7 @@ class PairHMM:
         to rescue)."""
         n = pk.n_real
         debug.check_nan(stacked[0].view(np.float32), n, debug.engine_name(
-            "pairhmm_scaled kernel", "pairhmm_raw_scaled_reference twin", self._devices()))
+            "pairhmm_scaled kernel", "pairhmm_raw_scaled_reference twin", self._shards.devices))
         mant = stacked[0].view(np.float32)[:n].astype(np.float64)
         ex = stacked[1][:n].astype(np.float64)
         flag = stacked[2][:n]

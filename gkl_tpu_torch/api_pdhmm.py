@@ -8,8 +8,9 @@ Parity with IntelPDHMM (``pdhmm/IntelPDHMM.java:46-220``):
   haplotypes (read-major cross product, pdhmm/JavaData.h:186-236).
 
 Engines: on ``PDHMM.device`` (CUDA by default) the float32 CUDA kernel
-``csrc/pdhmm.cu`` over deduplicated, memory-budgeted lane slices (each
-slice lane-sharded when the engine has a ``mesh``), with
+``csrc/pdhmm.cu`` over deduplicated, memory-budgeted lane slices, each
+launched through ``parallel.mesh.launch_lanes`` (lane-sharded when the
+engine has a ``mesh``, one slab otherwise), with
 every lane below ``MIN_ACCEPTED`` recomputed on the host's exact f64 oracle
 (``gkl_tpu_torch/native/pdhmm_oracle.cc``, a byte-identical copy of
 ``gkl_tpu/native/pdhmm_oracle.cc``) — the reference's
@@ -180,9 +181,10 @@ class PDHMM:
         req = self.args.max_number_of_threads
         return cores if req <= 0 else min(req, cores)
 
-    def _devices(self) -> tuple:
-        """The devices this engine's batches run on: the mesh's, or its own."""
-        return self.mesh.devices if self.mesh is not None else (self.device,)
+    @property
+    def _shards(self) -> mesh_mod.Mesh:
+        """The mesh slices run on: ``mesh``, or one entry of ``device``."""
+        return mesh_mod.engine_mesh(self.mesh, self.device)
 
     def _run_indexed(self, ridx, hidx, planes: _Planes, on: bool = False):
         """One lane slice through the f32 engine: ``ridx``/``hidx`` index
@@ -197,15 +199,9 @@ class PDHMM:
                 profiling.METRICS.record("pdhmm_unique", items=unique)
         # from the upload's start until the results are on the host
         with profiling.span("pdhmm_wait", on, items=len(ridx)):
-            if self.mesh is not None:
-                raw = mesh_mod.dispatch_pdhmm(self.mesh, pk).wait()[:pk.n_real]
-            else:
-                names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
-                dev = {k: torch.from_numpy(np.ascontiguousarray(getattr(pk, k))).to(self.device)
-                       for k in names}
-                raw = pdhmm_cuda.pdhmm(**dev).cpu().numpy()[:pk.n_real]
+            raw = mesh_mod.dispatch_pdhmm(self._shards, pk).wait()[:pk.n_real]
         debug.check_nan(raw, pk.n_real, debug.engine_name(
-            "pdhmm kernel", "pdhmm_indexed_reference twin", self._devices()))
+            "pdhmm kernel", "pdhmm_indexed_reference twin", self._shards.devices))
         return raw
 
     def _oracle(self, haps, hap_pds, reads, quals) -> np.ndarray:
@@ -230,7 +226,7 @@ class PDHMM:
         if self.args.use_double_precision or level == KernelLevel.SCALAR:
             out = self._oracle(*planes.pairs(ridx, hidx))
         else:
-            devices = self._devices()
+            devices = self._shards.devices
             if level == KernelLevel.PALLAS and any(d.type != "cuda" for d in devices):
                 # an explicit engine that cannot run raises, as the
                 # reference does for an unavailable AVX level
@@ -287,13 +283,11 @@ class PDHMM:
             lm = self._lane_multiple
             # the budget holds on each device: a slice puts 1/size of its
             # lanes on each shard, and shards that share a device add up there
-            shards, per_device = 1, 1
-            if self.mesh is not None:
-                shards = self.mesh.size
-                per_device = max(self.mesh.devices.count(d) for d in self.mesh.devices)
+            devices = self._shards.devices
+            per_device = max(map(devices.count, devices))
             budget_lanes = self.args.max_memory_in_mb * 1024 * 1024 // bytes_per_lane
             # whole lane-padding units, so a padded slice stays within the budget
-            max_lanes = max(lm, budget_lanes * shards // per_device // lm * lm)
+            max_lanes = max(lm, budget_lanes * len(devices) // per_device // lm * lm)
             parts = [slice(s, min(n, s + max_lanes)) for s in range(0, n, max_lanes)]
         ctx = pdhmm_context("float32")
         out = np.zeros(n, np.float64)

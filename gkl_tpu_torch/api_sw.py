@@ -5,16 +5,15 @@ Parity with IntelSmithWaterman (``smithwaterman/IntelSmithWaterman.java:44-191``
 = 32767, MAXIMUM_SW_MATCH_VALUE = 65536) and returns (cigar, offset).  The
 O(n*m) score and backtrack DP runs lane-batched on ``SmithWaterman.device``
 (the CUDA kernel ``csrc/sw_forward.cu``; its plain twin when the caller asks
-for ``device="cpu"``), and so do the O(n+m) maximum selection and CIGAR
-walk (``csrc/sw_walk.cu``, or its twin), which read the backtrack where the
-DP left it: only each lane's merged runs and offset come to the host, where
-one native call a chunk writes the CIGAR strings (``native/sw_cigar.cc``,
-the port's own).  On a ``mesh`` the DP is lane-sharded, and
-each process walks its own lanes from its backtrack shard in the native
-runtime ``gkl_tpu_torch/native/sw_runtime.cc``, a byte-identical copy of the
-JAX package's ``gkl_tpu/native/sw_runtime.cc``.  Pairs whose backtrack
-exceeds the device budget even at the minimum lane padding go to that
-runtime's threaded scalar aligner.
+for ``device="cpu"``), or on each lane slab of a ``mesh``, and so do the
+O(n+m) maximum selection and CIGAR walk (``csrc/sw_walk.cu``, or its twin),
+which read the backtrack where the DP left it: only each lane's merged runs
+and offset come to the host, where one native call a slab writes the CIGAR
+strings (``native/sw_cigar.cc``, the port's own).  Pairs whose backtrack
+exceeds the device budget even at the minimum lane padding go to the
+threaded scalar aligner of the native runtime
+``gkl_tpu_torch/native/sw_runtime.cc``, a byte-identical copy of the JAX
+package's ``gkl_tpu/native/sw_runtime.cc``.
 """
 
 from __future__ import annotations
@@ -208,9 +207,9 @@ class SmithWaterman:
     multiple of it, and the backtrack budget counts lanes in its units;
     None means ``batch.LANE_MULTIPLE * mesh.size`` (8 without a mesh), and a
     value below 1 or one that does not split evenly over the mesh raises
-    ``ValueError``.  ``mesh``: an optional ``parallel.Mesh``; the DP then
-    shards lane-wise over it, and each process walks the CIGARs of its own
-    lanes from its own backtrack shard.  ``threads`` caps the native
+    ``ValueError``.  ``mesh``: an optional ``parallel.Mesh``; the DP and
+    the walk then shard lane-wise over it, each slab on its entry's device.
+    ``threads`` caps the native
     scalar-aligner pool (default: ``GKL_TPU_THREADS`` or all cores, at most
     16)."""
 
@@ -306,12 +305,9 @@ class SmithWaterman:
         return out  # type: ignore[return-value]
 
     def _align_device(self, N, M, refs, alts, p: SWParameters, strategy, on: bool):
-        """One launch over a lane chunk (one a lane slab on the mesh): pack,
-        run the DP and the walk on the device, and bring each lane's runs,
-        count and offset to the host.  On a mesh the walk is the native
-        runtime's on this process's backtrack slabs: ``launch.wait()`` brings
-        them to the host, and ``sw_wait`` holds it; ``sw_bt_copy`` then
-        covers the lane selection and the transpose."""
+        """One lane chunk: pack it, then run the DP and the walk on the
+        device and bring each lane's runs, count and offset to the host
+        (``_align_walked``)."""
         with profiling.span("sw_pack", on, items=len(refs)):
             P = batch_mod.bucket_lanes(len(refs), self._lane_multiple)
             ref_a = np.zeros((N, P), np.uint8)
@@ -324,63 +320,63 @@ class SmithWaterman:
                 reflen[c] = len(r)
                 altlen[c] = len(a)
             indel = strategy in (OverhangStrategy.INDEL, OverhangStrategy.LEADING_INDEL)
-        if self.mesh is None:
-            return self._align_walked(ref_a, alt_a, reflen, altlen, p, indel, strategy,
-                                      len(refs), on)
-        with profiling.span("sw_dispatch", on, items=len(refs)):
-            # this process's lanes only: the backtrack never crosses processes
-            launch = mesh_mod.dispatch_sw(self.mesh, ref_a, alt_a, reflen, altlen, p,
-                                          indel_boundary=indel, gather=False)
-        with profiling.span("sw_wait", on, items=len(refs)):
-            bt, lastrow, lastcol = launch.wait()
+        return self._align_walked(ref_a, alt_a, reflen, altlen, p, indel, strategy,
+                                  len(refs), on)
+
+    def _align_walked(self, ref_a, alt_a, reflen, altlen, p: SWParameters, indel: bool,
+                      strategy, n_lanes: int, on: bool) -> list[SWAlignerResult]:
+        """The DP and the walk on each of this process's lane slabs, one
+        launch each on the slab's device (``device`` without a mesh); the
+        backtrack stays there, and the runs of the first ``n_lanes`` lanes
+        come to the host.  Each slab fetches only its runs' first rows
+        rather than going through ``launch_lanes``, which copies whole
+        outputs.  On a multi-process mesh every process's results are
+        gathered in rank (= lane) order."""
+        mesh = mesh_mod.engine_mesh(self.mesh, self.device)
+        local = mesh.local_entries()
+        cuts = mesh_mod.lane_slices(ref_a.shape[1], mesh.size)
+        walks = []
+        with profiling.span("sw_dispatch", on, items=n_lanes):
+            for k, dev in local:
+                sl = cuts[k]
+                args = [torch.from_numpy(np.ascontiguousarray(x[..., sl])).to(dev)
+                        for x in (ref_a, alt_a, reflen, altlen)]
+                bt, lastrow, lastcol = sw_cuda.sw_forward(
+                    *args, p.match_value, p.mismatch_penalty, p.gap_open_penalty,
+                    p.gap_extend_penalty, indel_boundary=indel)
+                walk = sw_cuda.sw_walk(bt, lastrow, lastcol, args[2], args[3], strategy)
+                walks.append((max(0, min(n_lanes, sl.stop) - sl.start), walk))
+        if on:
+            profiling.METRICS.record("sw_card_walk", items=n_lanes)
+        with profiling.span("sw_wait", on, items=n_lanes):
+            for dev in {dev for _, dev in local if dev.type == "cuda"}:
+                torch.cuda.current_stream(dev).synchronize()
         with profiling.span("sw_bt_copy", on) as copy:
-            lanes = mesh_mod.local_lanes(self.mesh, P)
-            # bt (P, N/2, M) and lastcol (P, N) are lane-major; lastrow (M, P)
-            lastrow_t = np.ascontiguousarray(lastrow.T)
-            copy.items = bt.nbytes
-        with profiling.span("sw_host_walk", on, items=len(refs)):
-            res = [self._postprocess(bt[c], int(reflen[k]), int(altlen[k]), lastrow_t[c],
-                                     lastcol[c], strategy)
-                   for c, k in enumerate(range(lanes.start, min(lanes.stop, len(refs))))]
-            if mesh_mod.is_multiprocess(self.mesh):
-                # every process's walked lanes, in rank (= lane) order
+            hosts = []
+            for n, walk in walks:
+                rows = min(2 + SW_RUNS_FIRST_COPY, walk.shape[0])
+                host = walk[:rows].cpu().numpy()
+                longest = int(host[0, :n].max(initial=0))
+                if 2 + longest > rows:
+                    host = walk[:2 + longest].cpu().numpy()
+                hosts.append((n, host))
+            copy.items = sum(host.nbytes for _, host in hosts)
+        with profiling.span("sw_host_walk", on, items=n_lanes):
+            res = []
+            for n, host in hosts:
+                cigars = format_cigars(host[2:, :n], host[0, :n])
+                res += map(SWAlignerResult, cigars, host[1, :n].tolist())
+            if mesh_mod.is_multiprocess(mesh):
                 parts = [None] * mesh_mod.process_count()
                 torch.distributed.all_gather_object(parts, res)
                 res = [r for part in parts for r in part]
         return res
 
-    def _align_walked(self, ref_a, alt_a, reflen, altlen, p: SWParameters, indel: bool,
-                      strategy, n_lanes: int, on: bool) -> list[SWAlignerResult]:
-        """The DP and the walk on ``self.device``, one launch each; the
-        backtrack stays there, and the first ``n_lanes`` lanes' runs come
-        to the host."""
-        dev = self.device
-        with profiling.span("sw_dispatch", on, items=n_lanes):
-            args = [torch.from_numpy(x).to(dev) for x in (ref_a, alt_a, reflen, altlen)]
-            bt, lastrow, lastcol = sw_cuda.sw_forward(
-                *args, p.match_value, p.mismatch_penalty, p.gap_open_penalty,
-                p.gap_extend_penalty, indel_boundary=indel)
-            walk = sw_cuda.sw_walk(bt, lastrow, lastcol, args[2], args[3], strategy)
-        if on:
-            profiling.METRICS.record("sw_card_walk", items=n_lanes)
-        with profiling.span("sw_wait", on, items=n_lanes):
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
-        with profiling.span("sw_bt_copy", on) as copy:
-            rows = min(2 + SW_RUNS_FIRST_COPY, walk.shape[0])
-            host = walk[:rows].cpu().numpy()
-            longest = int(host[0, :n_lanes].max(initial=0))
-            if 2 + longest > rows:
-                rows = 2 + longest
-                host = walk[:rows].cpu().numpy()
-            copy.items = host.nbytes
-        with profiling.span("sw_host_walk", on, items=n_lanes):
-            cigars = format_cigars(host[2:, :n_lanes], host[0, :n_lanes])
-            return list(map(SWAlignerResult, cigars, host[1, :n_lanes].tolist()))
-
     def _postprocess(self, bt_packed, n, m, lastrow, lastcol, strategy) -> SWAlignerResult:
         """Maximum selection and CIGAR walk of one lane on the native
-        runtime; ``bt_packed`` is its (N//2, M) row-pair packed backtrack."""
+        runtime; ``bt_packed`` is its (N//2, M) row-pair packed backtrack.
+        No path of the API calls it: it is the native reference that the
+        walk's tests hold the kernel and its twin to."""
         cap = 2 * (n + m) + 16  # worst case: 2 chars per length-1 run
         buf = ctypes.create_string_buffer(cap)
         offset = ctypes.c_int32()

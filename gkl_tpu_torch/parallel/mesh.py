@@ -95,6 +95,21 @@ class Mesh:
         return [(k, d) for k, (d, p) in enumerate(zip(self.devices, self.processes)) if p == me]
 
 
+def engine_mesh(mesh: Mesh | None, device) -> Mesh:
+    """The mesh an engine runs its batches on: its ``mesh``, or without one
+    a one-entry ``dp`` mesh of its ``device`` in this process, made when
+    the engine first dispatches (so an engine on a card needs no card
+    until it runs)."""
+    if mesh is not None:
+        return mesh
+    return _one_entry_mesh(_indexed(device), process_index())
+
+
+@functools.lru_cache(maxsize=None)
+def _one_entry_mesh(device: torch.device, rank: int) -> Mesh:
+    return Mesh((device,), (rank,))
+
+
 def _local_mesh(axis: str, n_devices: int | None, devices) -> Mesh:
     if devices is None:
         if not torch.cuda.is_available():
@@ -210,16 +225,8 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def local_lanes(mesh: Mesh, n_lanes: int) -> slice:
-    """The lanes of ``n_lanes`` that this process's entries run: one
-    contiguous block, since a process's entries are."""
-    cuts = lane_slices(n_lanes, mesh.size)
-    ks = [k for k, _ in mesh.local_entries()]
-    return slice(cuts[ks[0]].start, cuts[ks[-1]].stop) if ks else slice(0, 0)
-
-
 def launch_lanes(mesh: Mesh, n_lanes: int, inputs, kernel, *, out_axes=(-1,),
-                 gather: bool = True, **kernel_kw) -> Launch:
+                 **kernel_kw) -> Launch:
     """Run ``kernel`` on each of this process's lane slabs, without waiting.
 
     ``inputs(k, sl)`` gives shard ``k``'s host arrays for the lanes ``sl``
@@ -228,17 +235,19 @@ def launch_lanes(mesh: Mesh, n_lanes: int, inputs, kernel, *, out_axes=(-1,),
     lane axis is ``out_axes[i]``.  A CUDA shard runs under
     ``torch.cuda.device(dev)`` (the ctypes launchers take a stream but no
     device, and launch on the current one) on a stream of its own: its
-    planes go up from pinned buffers, its outputs come down into its rows
-    of the pinned host buffers, and an event on its stream marks their
-    arrival.  A CPU shard runs at once.  On a multi-process mesh the
-    returned handle gathers every process's lanes when waited on, unless
-    ``gather`` is False: it then gives this process's lanes
-    (:func:`local_lanes`)."""
+    planes go up by non-blocking copies from the host arrays as they are
+    (CUDA stages pageable memory before the copy returns, and
+    pinning each plane first cost more host time than it saved), its
+    outputs come down into its rows of the pinned host buffers, and an
+    event on its stream marks their arrival.  A CPU shard runs at once.
+    On a multi-process mesh the returned handle gathers every process's
+    lanes when waited on."""
     cuts = lane_slices(n_lanes, mesh.size)
     local = mesh.local_entries()
     if not local:
         raise ValueError("this process owns no entry of the mesh")
-    mine = local_lanes(mesh, n_lanes)
+    # this process's lanes: one contiguous block, since its entries are
+    mine = slice(cuts[local[0][0]].start, cuts[local[-1][0]].stop)
     pin = any(dev.type == "cuda" for _, dev in local)
     name = getattr(kernel, "__name__", "kernel")
     host, events, keep = None, [], []
@@ -257,8 +266,7 @@ def launch_lanes(mesh: Mesh, n_lanes: int, inputs, kernel, *, out_axes=(-1,),
         with torch.cuda.device(dev):
             stream = _shard_stream(dev, k)
             with torch.cuda.stream(stream):
-                pinned = {n: t.pin_memory() for n, t in arrays.items()}
-                planes = {n: t.to(dev, non_blocking=True) for n, t in pinned.items()}
+                planes = {n: t.to(dev, non_blocking=True) for n, t in arrays.items()}
                 if TRACE is not None:
                     start = torch.cuda.Event(enable_timing=True)
                     stop = torch.cuda.Event(enable_timing=True)
@@ -275,8 +283,8 @@ def launch_lanes(mesh: Mesh, n_lanes: int, inputs, kernel, *, out_axes=(-1,),
                 event = torch.cuda.Event()
                 event.record(stream)
         events.append(event)
-        keep.append((pinned, planes, outs))
-    return Launch(host, out_axes, events, keep, gather=gather and is_multiprocess(mesh))
+        keep.append((planes, outs))
+    return Launch(host, out_axes, events, keep, gather=is_multiprocess(mesh))
 
 
 def _host_buffers(outs, n_local: int, pin: bool):
@@ -321,13 +329,24 @@ def _compacted(cols, idx):
     return [c[..., used] for c in cols], inv.astype(np.int32)
 
 
+def _whole(pk, names):
+    """The packed planes as they are, when one slab covers every lane: no
+    unique pass (an engine without a mesh launches this way)."""
+    planes = {n: getattr(pk, n) for n in names}
+    return lambda k, sl: planes
+
+
 def _indexed_pairhmm_inputs(pk, size: int):
-    """An indexed PairHMM batch's slabs.  In the full-pattern layout each
-    shard takes the read columns cut where its lanes are cut and rebases
-    ``ridx`` onto them (``gkl_tpu/parallel/mesh.py:226-236``); the
-    haplotype planes go whole to every shard.  Otherwise each shard takes
-    the unique columns its lanes use."""
+    """An indexed PairHMM batch's slabs.  One slab takes the batch whole.
+    In the full-pattern layout each shard takes the read columns cut where
+    its lanes are cut and rebases ``ridx`` onto them
+    (``gkl_tpu/parallel/mesh.py:226-236``); the haplotype planes go whole
+    to every shard.  Otherwise each shard takes the unique columns its
+    lanes use."""
     quals = () if pk.quals_u is None else (pk.quals_u,)
+    if size == 1:
+        return _whole(pk, ("hap_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
+                      + (("quals_u",) if quals else ()))
     if pk.pattern_nh is not None:
         nu = pk.readq_u.shape[2] // size
 
@@ -351,9 +370,13 @@ def _indexed_pairhmm_inputs(pk, size: int):
     return inputs
 
 
-def _indexed_pdhmm_inputs(pk):
-    """A ``batch.PackedPDHMMIndexed``'s slabs: each shard takes the unique
-    read and haplotype columns its lanes use."""
+def _indexed_pdhmm_inputs(pk, size: int):
+    """A ``batch.PackedPDHMMIndexed``'s slabs: one slab takes the batch
+    whole; otherwise each shard takes the unique read and haplotype columns
+    its lanes use."""
+    if size == 1:
+        return _whole(pk, ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen"))
+
     def inputs(k, sl):
         (readq_u,), ridx = _compacted((pk.readq_u,), pk.ridx[sl])
         (hap_u, happd_u), hidx = _compacted((pk.hap_u, pk.happd_u), pk.hidx[sl])
@@ -398,20 +421,8 @@ def dispatch_pairhmm(mesh: Mesh, pk, kernel) -> Launch:
 
 def dispatch_pdhmm(mesh: Mesh, pk) -> Launch:
     """The PDHMM kernel on a ``batch.PackedPDHMMIndexed``, sharded."""
-    return launch_lanes(mesh, pk.ridx.shape[0], _indexed_pdhmm_inputs(pk), pdhmm_cuda.pdhmm)
-
-
-def dispatch_sw(mesh: Mesh, ref, alt, reflen, altlen, params, *,
-                indel_boundary: bool = False, gather: bool = True) -> Launch:
-    """The SW kernel on (N, P) ``ref`` and (M, P) ``alt``, sharded: each
-    shard sees the batch's N and M, so the kernel's M % 8 rule holds on
-    every shard.  Outputs: bt (P, N//2, M), lastrow (M, P), lastcol (P, N);
-    without ``gather``, this process's lanes only."""
-    inputs = _dense_inputs(dict(ref=ref, alt=alt, reflen=np.asarray(reflen, np.int32),
-                                altlen=np.asarray(altlen, np.int32)))
-    return launch_lanes(mesh, np.asarray(ref).shape[1], inputs, sw_cuda.sw_forward,
-                        out_axes=(0, 1, 0), gather=gather, indel_boundary=indel_boundary,
-                        **_sw_scores(params))
+    return launch_lanes(mesh, pk.ridx.shape[0], _indexed_pdhmm_inputs(pk, mesh.size),
+                        pdhmm_cuda.pdhmm)
 
 
 def _dense_pairhmm(mesh, packed, kernel):
@@ -472,11 +483,16 @@ pdhmm_raw_pallas_chunked_sharded = pdhmm_raw_pallas_sharded
 
 def sw_forward_pallas_sharded(mesh: Mesh, ref, alt, reflen, altlen, params, *,
                               indel_boundary: bool = False):
-    """SW score and backtrack DP, lane-sharded: the CUDA kernel on each
-    slab.  Returns (bt (P, N//2, M) uint8, lastrow (M, P), lastcol (P, N)),
-    the kernel's layout."""
-    return dispatch_sw(mesh, ref, alt, reflen, altlen, params,
-                       indel_boundary=indel_boundary).wait()
+    """SW score and backtrack DP of (N, P) ``ref`` and (M, P) ``alt``,
+    lane-sharded: the CUDA kernel on each slab, which sees the batch's N
+    and M, so the kernel's M % 8 rule holds on every shard.  Returns (bt
+    (P, N//2, M) uint8, lastrow (M, P), lastcol (P, N)), the kernel's
+    layout."""
+    inputs = _dense_inputs(dict(ref=ref, alt=alt, reflen=np.asarray(reflen, np.int32),
+                                altlen=np.asarray(altlen, np.int32)))
+    return launch_lanes(mesh, np.asarray(ref).shape[1], inputs, sw_cuda.sw_forward,
+                        out_axes=(0, 1, 0), indel_boundary=indel_boundary,
+                        **_sw_scores(params)).wait()
 
 
 # one launch of the CUDA kernel covers any N: the JAX relay is the same call

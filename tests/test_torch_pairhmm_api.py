@@ -255,25 +255,28 @@ def test_async_inflight_budget_defers_long_haplotype_group(monkeypatch):
 
 
 def test_device_bytes_counts_the_ports_footprint(monkeypatch):
-    """``device_bytes`` is what ``PairHMM._dispatch`` uploads, plus the three
-    (H, P) f32 boundary planes and the (3, P) int32 output, for batches with
-    the gap quals as planes and as constants; the default budget holds
-    such a group."""
+    """``device_bytes`` is what an engine without a mesh uploads through
+    ``parallel.mesh.launch_lanes``, plus the three (H, P) f32 boundary
+    planes and the (3, P) int32 output, for batches with the gap quals as
+    planes and as constants; the default budget holds such a group."""
+    from gkl_tpu_torch.parallel import mesh as mesh_mod
+
     uploads = []
-    real = PairHMM._launch
+    real = mesh_mod.launch_lanes
 
-    def spy(self, arrays, kernel):
-        uploads.append(sum(np.asarray(v).nbytes for v in arrays.values()))
-        return real(self, arrays, kernel)
+    def spy(mesh, n_lanes, inputs, kernel, **kw):
+        assert mesh.size == 1
+        uploads.append(sum(v.nbytes for v in inputs(0, slice(0, n_lanes)).values()))
+        return real(mesh, n_lanes, inputs, kernel, **kw)
 
-    monkeypatch.setattr(PairHMM, "_launch", spy)
+    monkeypatch.setattr(mesh_mod, "launch_lanes", spy)
     reads, haps = _golden_reads(golden.load_pairhmm_cases()[:3])
     rq = [(r.read_quals, r.insertion_gop, r.deletion_gop, r.overall_gcp) for r in reads]
     for const in (None, (45, 45, 10)):
         pk = tbatch.pack_pairs_indexed([h.haplotype_bases for h in haps],
                                        [r.read_bases for r in reads], rq, const_quals=const)
         H, P = pk.hap_u.shape[0], pk.ridx.shape[0]
-        PairHMM(device="cpu")._dispatch(pk, lambda **t: torch.zeros((3, P), dtype=torch.int32))
+        PairHMM(device="cpu")._dispatch_group(np.arange(pk.n_real), pk)
         assert pk.device_bytes() == uploads[-1] + 3 * 4 * H * P + 12 * P
         assert 0 < pk.device_bytes() < PairHMM._ASYNC_INFLIGHT_BYTES
     assert uploads[0] - uploads[1] == 3 * pk.readq_u.shape[1] * pk.readq_u.shape[2]

@@ -131,6 +131,53 @@ def test_compact_indexed_slabs_equal_the_whole_batch():
     np.testing.assert_array_equal(got, pairhmm_cuda.pairhmm_scaled(**t).numpy())
 
 
+def _pdhmm_indexed(rng, n_haps=3, n_reads=5):
+    haps = [BASES[rng.integers(0, 4, int(rng.integers(16, 25)))] for _ in range(n_haps)]
+    pds = [np.zeros(len(h), np.uint8) for h in haps]
+    reads = [BASES[rng.integers(0, 4, 16)] for _ in range(n_reads)]
+    quals = [tuple(rng.integers(lo, 45, 16).astype(np.uint8) for lo in (20, 30, 30, 10))
+             for _ in range(n_reads)]
+    ridx = np.repeat(np.arange(n_reads), n_haps)
+    hidx = np.tile(np.arange(n_haps), n_reads)
+    return tbatch.pack_pdhmm_indexed(haps, pds, reads, quals, ridx, hidx, lane_multiple=8)
+
+
+@pytest.mark.parametrize("kernel", ["pairhmm_scaled", "pdhmm"])
+def test_one_entry_dispatch_passes_the_planes_whole(monkeypatch, kernel):
+    """On a one-entry mesh (how an engine without a mesh launches) the
+    packed planes reach the kernel as they are: no unique pass, the same
+    arrays, and the kernel's result on the whole batch."""
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    def refuse(*args):
+        raise AssertionError("one slab needs no unique pass")
+    monkeypatch.setattr(tmesh, "_compacted", refuse)
+    seen = []
+    real = tmesh.launch_lanes
+
+    def spy(mesh, n_lanes, inputs, kern, **kw):
+        seen.append(inputs(0, slice(0, n_lanes)))
+        return real(mesh, n_lanes, inputs, kern, **kw)
+    monkeypatch.setattr(tmesh, "launch_lanes", spy)
+    one = tmesh.engine_mesh(None, "cpu")
+    assert one.devices == (torch.device("cpu"),) and tmesh.engine_mesh(None, "cpu") is one
+    if kernel == "pdhmm":
+        pk = _pdhmm_indexed(np.random.default_rng(4))
+        got = tmesh.dispatch_pdhmm(one, pk).wait()
+        names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
+        want = pdhmm_cuda.pdhmm(**{k: torch.from_numpy(getattr(pk, k)) for k in names})
+    else:
+        haps, reads, rquals = _indexed_inputs(n_haps=3, n_reads=7)
+        pk = tbatch.pack_pairs_indexed(haps, reads, rquals, lane_multiple=8)
+        got = tmesh.dispatch_pairhmm(one, pk, pairhmm_cuda.pairhmm_scaled).wait()
+        names = ("hap_u", "readq_u", "quals_u", "ridx", "hidx", "haplen", "rslen")
+        want = pairhmm_cuda.pairhmm_scaled(**{k: torch.from_numpy(getattr(pk, k))
+                                              for k in names})
+    assert sorted(seen[0]) == sorted(names)
+    assert all(seen[0][k] is getattr(pk, k) for k in names)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 @pytest.mark.parametrize("n", [1, 3, 8])
 def test_data_parallel_mesh_matches_jax(n):
     """``data_parallel_mesh`` over n given devices: the JAX mesh's size,

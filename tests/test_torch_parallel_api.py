@@ -115,6 +115,36 @@ def test_sw_api_with_mesh(strategy):
     assert pairs == [(w.cigar, w.alignment_offset) for w in want]
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_sw_mesh_walks_on_the_card(monkeypatch, n):
+    """``SmithWaterman(mesh=)`` walks every lane's CIGAR where its slab's
+    DP left the backtrack, as the engine without a mesh does: the
+    ``sw_card_walk`` counter holds every lane aligned, the native
+    per-lane walk (``_postprocess``) never runs, and the results are the
+    engine's without a mesh."""
+    from gkl_tpu_torch import profiling
+
+    refs, alts = _sw_pairs(seed=9, n=20)
+    params = SWParameters(200, -150, -260, -11)
+    single = SmithWaterman(device="cpu").align_batch(refs, alts, params,
+                                                     OverhangStrategy.SOFTCLIP)
+
+    def refuse(*args):
+        raise AssertionError("the mesh walked a lane on the host")
+    monkeypatch.setattr(SmithWaterman, "_postprocess", refuse)
+    monkeypatch.setenv("GKL_TPU_METRICS", "1")
+    profiling.METRICS.reset()
+    try:
+        got = SmithWaterman(device="cpu", mesh=_cpu_mesh(n)).align_batch(
+            refs, alts, params, OverhangStrategy.SOFTCLIP)
+        walked = profiling.METRICS.snapshot()["sw_card_walk"]["items"]
+    finally:
+        profiling.METRICS.reset()
+    assert walked == len(refs)
+    assert ([(g.cigar, g.alignment_offset) for g in got]
+            == [(s.cigar, s.alignment_offset) for s in single])
+
+
 def test_api_mesh_deep_lane_rescue_policies(monkeypatch):
     """The three GKL_TPU_RESCUE policies on a mesh: each equals the same
     policy without a mesh, and agrees with the f64 engine to the policy's
