@@ -9,7 +9,8 @@ before printing any result.  Phases, one line each (or a few):
 1. build: the CUDA kernels (one nvcc per source, sm_90a, all started
    together, linked into one library) and the host C++ libraries, with
    the registers and spills of both instances of the row kernel and of
-   each instance of the column, SW and PDHMM kernels;
+   each instance of the column, SW and PDHMM kernels (the PDHMM body's f32
+   and f64 instances);
 2. PairHMM kernel vs its plain PyTorch twin on the card at the benchmark
    shape (R=128, H=224, P=2048), with the gap quals as planes and as the
    GATK constants, both timed; and on a deep-lane batch.  Each is also held
@@ -125,7 +126,11 @@ before printing any result.  Phases, one line each (or a few):
     BAM's first 4 MiB of payload at levels 1, 6, 9 (host times); (d) the
     corpus under ``debug.debug_context()``, bit for bit phase 11's; (e) the
     seeded draws of ``tests/test_kernel_fuzz.py`` through each CUDA kernel,
-    bit for bit its kernel-order twin (``tests/torch_fuzz_cases.py``).
+    bit for bit its kernel-order twin (``tests/torch_fuzz_cases.py``; the
+    PDHMM draws through the f32 and the f64 instances), then one region of
+    the benchmark's long cell (``bench_port/gen``) through ``PDHMM()``:
+    each rescue's lanes through the f64 instance within 1e-9 in log10 of
+    the host oracle, timed beside their FP64 bound and the twin.
 17. the names that close the port against ``gkl_tpu``, each line beside
     the card's name and power limit: (a) phase 11's corpus through
     ``run_region`` with the three engines built with ``lane_multiple`` 1,
@@ -150,7 +155,8 @@ The line before the last is a JSON object describing each kernel
 and PDHMM kernels, phase 13 for the column kernel, phase 12a's
 ``_raw_batch`` call for the rows kernel, which no group of
 ``compute_likelihoods`` reaches on one card, as in the JAX package;
-``ms``/``plain_ms`` from phase 2's GATK constants, 12a, 12b, 7a and 8a;
+``ms``/``plain_ms`` from phase 2's GATK constants, 12a, 12b, 7a and 8a,
+and for the PDHMM rescue's f64 instance 16e's launches and slowest rescue;
 ``bound_ms`` the least time the card could take for that timed work;
 ``max_abs_err`` the largest in-range kernel-vs-twin difference seen); the
 last is ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -195,6 +201,13 @@ RAW_BATCH_CPU_LANES = 256
 PROFILE_CSV_BYTES = 4 << 20
 TRACE_KERNEL_NAMES = {"pairhmm_scaled": "pairhmm_kernel", "sw_forward": "sw_forward_kernel",
                       "sw_walk": "sw_walk_kernel", "pdhmm": "pdhmm_kernel"}
+# float64 outside the tensor cores on one H100 SXM at 700 W (NVIDIA's data
+# sheet): the rate that bounds the PDHMM rescue's f64 instance
+PEAK_F64_PER_S = 34e12
+# 16e: the benchmark's long cell, one region at its largest window, whose
+# PDHMM call rescues a few dozen HiFi lanes of up to ~4.8 kb x 5 kb
+LONG_CELL = "hc_long_region.region"
+LONG_CELL_SEED = 2 ** 31 + 21
 
 
 def log(phase: str, **fields) -> None:
@@ -223,10 +236,13 @@ def bound(kernel, io_bytes, cells, result_columns=0):
     from bench_port.harness import roofline as r
 
     family = kernel.split("_")[0]  # pairhmm, sw or pdhmm
+    f64 = kernel.endswith("_f64")  # the PDHMM rescue's instance: its tables and rate in f64
     ops = {"pairhmm": r.PAIRHMM_OPS_PER_CELL, "sw": r.SW_OPS_PER_CELL,
            "pdhmm": r.PDHMM_OPS_PER_CELL}[family]
     tables = {"pairhmm": r.PAIRHMM_TABLE_BYTES, "pdhmm": r.PDHMM_TABLE_BYTES}.get(family, 0)
-    peak = r.PEAK_INT32_PER_S if family == "sw" else r.PEAK_F32_PER_S
+    tables *= 2 if f64 else 1
+    peak = (PEAK_F64_PER_S if f64 else r.PEAK_INT32_PER_S if family == "sw"
+            else r.PEAK_F32_PER_S)
     t_bytes = (io_bytes + tables) / r.PEAK_BYTES_PER_S
     t_ops = (ops * cells + r.PAIRHMM_OPS_PER_RESULT_COLUMN * result_columns) / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -474,11 +490,13 @@ def phase_build():
         if flag not in row_instances:
             raise AssertionError(f"no {kernel} instance in the ptxas log")
         log("1 build", kernel=kernel, **row_instances[flag])
-    for kernel, entry, module in (("pairhmm_cols", "pairhmm_cols_kernel", pairhmm_cols),
-                                  ("sw_forward", "sw_forward_kernel", sw_cuda),
-                                  ("pdhmm", "pdhmm_kernel", pdhmm_cuda)):
-        instances = kernel_instances(build_log, entry + r"ILi(\d+)E")
-        for rows in module.ROWS_PER_THREAD:
+    for kernel, entry, rows_per_thread in (
+            ("pairhmm_cols", "pairhmm_cols_kernelI", pairhmm_cols.ROWS_PER_THREAD),
+            ("sw_forward", "sw_forward_kernelI", sw_cuda.ROWS_PER_THREAD),
+            ("pdhmm", "pdhmm_kernelIf", pdhmm_cuda.ROWS_PER_THREAD),
+            ("pdhmm_f64", "pdhmm_kernelId", pdhmm_cuda.F64_ROWS_PER_THREAD)):
+        instances = kernel_instances(build_log, entry + r"Li(\d+)E")
+        for rows in rows_per_thread:
             if str(rows) not in instances:
                 raise AssertionError(f"no {kernel} instance for {rows} rows a thread in the "
                                      f"ptxas log")
@@ -2184,8 +2202,80 @@ def phase_kernel_fuzz(card):
     log("16e kernel_fuzz", card=repr(card),
         **{f"{k}_cases": v[0] for k, v in per_kernel.items()},
         **{f"{k}_lanes_differ": v[1] for k, v in per_kernel.items()}, wall_s=wall)
-    if len(per_kernel) != 5 or any(differ.values()):
+    if len(per_kernel) != 6 or any(differ.values()):
         raise AssertionError(f"16e: {({k: v for k, v in differ.items() if v})}")
+    return phase_pdhmm_f64_rescue(card)
+
+
+def long_cell_rescue(seed=LONG_CELL_SEED):
+    """One region of the benchmark's long cell at its largest window,
+    drawn by ``bench_port/gen``, through ``PDHMM()`` on the card with its
+    rescue spied: the call's log10 likelihoods and, for each rescue, the
+    lanes (``ridx``, ``hidx``) and the call's unique planes."""
+    from bench_port.harness import drive, spec
+    from gkl_tpu_torch import PDHMM
+
+    c = spec.load_cell(LONG_CELL)
+    raw = c.generator().region(np.random.default_rng(seed), c.config,
+                               max(c.mix["region_sizes"]), c.mix["n_haplotypes"])
+    region = drive.port_region(raw, c.config)
+    hmm = PDHMM()
+    rescues, real = [], hmm._rescue
+
+    def spy(ridx, hidx, planes):
+        rescues.append((ridx, hidx, planes))
+        return real(ridx, hidx, planes)
+
+    hmm._rescue = spy
+    return hmm.compute_likelihoods(region.reads, region.pd_haps), rescues
+
+
+def phase_pdhmm_f64_rescue(card):
+    """16e: the f64 instance on the lanes the long cell's PDHMM call
+    rescues: within 1e-9 in log10 of the host oracle, equal to what the
+    call returned, timed (CUDA events) beside its FP64 bound and the plain
+    twin in the kernel's order.  Returns the kernel's timing for the
+    summary line."""
+    import torch
+
+    from gkl_tpu_torch import batch as batch_mod
+    from gkl_tpu_torch.context import pdhmm_context
+    from gkl_tpu_torch.ops import pdhmm_cuda, pdhmm_ref
+
+    f64_launches = pdhmm_cuda.F64_LAUNCHES
+    out, rescues = long_cell_rescue()
+    launches = pdhmm_cuda.F64_LAUNCHES - f64_launches
+    if not rescues or launches != len(rescues):
+        raise AssertionError(f"16e: {len(rescues)} rescues, {launches} f64 launches")
+    names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
+    L = pdhmm_context("float64").INITIAL_CONDITION_LOG10
+    timing = None
+    for ridx, hidx, planes in rescues:
+        pk, _ = batch_mod.pack_pdhmm_lanes(*planes, ridx, hidx)
+        t = {k: torch.from_numpy(getattr(pk, k)).to("cuda") for k in names}
+        raw = pdhmm_cuda.pdhmm_f64(**t)
+        with np.errstate(divide="ignore"):
+            got = np.log10(raw.cpu().numpy()[:pk.n_real]) - L
+        t0 = time.perf_counter()
+        exact = pdhmm_ref.pdhmm_scalar_batch(*planes.pairs(ridx, hidx))
+        oracle_s = time.perf_counter() - t0
+        err = float(np.abs(got - exact).max())
+        ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm_f64(**t), 3)
+        plain_ms = cuda_ms(lambda i: pdhmm_cuda.pdhmm_kernel_order(**t, dtype="float64"), 1)
+        cells = lane_cells(t["haplen"][:pk.n_real], t["rslen"][:pk.n_real])
+        b = bound("pdhmm_f64", nbytes(*t.values(), raw), cells)
+        R, H = pk.readq_u.shape[1], pk.hap_u.shape[0]
+        rows, pass_rows, passes = pdhmm_cuda.pdhmm_geometry(R, "float64")
+        log("16e pdhmm_f64_rescue", card=repr(card), shape=f"R{R}_H{H}_P{pk.n_real}",
+            rows_per_thread=rows, passes=passes, max_read=int(pk.rslen.max()),
+            max_hap=int(pk.haplen.max()), max_abs_log10_err_vs_oracle=err,
+            kernel_ms=ms, twin_ms=plain_ms, oracle_s=oracle_s, x_bound=ms / b["bound_ms"], **b)
+        if not err <= 1e-9:
+            raise AssertionError(f"16e: the f64 instance is {err:.3e} from the oracle")
+        if timing is None or ms > timing["ms"]:
+            timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+    timing["launches"] = launches
+    return timing
 
 
 def phase_completion(c, region, raw_12a, corpus_payload_head):
@@ -2196,7 +2286,7 @@ def phase_completion(c, region, raw_12a, corpus_payload_head):
     phase_raw_batch_f64(card, raw_12a)
     phase_observability(c, corpus_payload_head)
     phase_debug(c, region, card)
-    phase_kernel_fuzz(card)
+    return phase_kernel_fuzz(card)
 
 
 PHASE17_LANE_MULTIPLES = (1, 3, 128)
@@ -2433,7 +2523,8 @@ def main(argv) -> int:
     cols_timing["max_abs_err"] = max(cols_timing["max_abs_err"], path_err)
     corpus_payload_head = phase_validation(corpus)
     phase_multi_device(corpus, region, long_lik, raw_12a)
-    phase_completion(corpus, region, raw_12a, corpus_payload_head)
+    f64_timing = phase_completion(corpus, region, raw_12a, corpus_payload_head)
+    launches["pdhmm_f64"] = f64_timing.pop("launches")
     phase_lane_multiple(corpus, region, corpus_payload_head)
     kernels = [
         ("pairhmm_scaled", "pairhmm_scaled.cu", "gkl_tpu/ops/pairhmm_pallas.py:69", timing),
@@ -2443,6 +2534,7 @@ def main(argv) -> int:
         ("sw_forward", "sw_forward.cu", "gkl_tpu/ops/sw_pallas.py:63 and :206", sw_timing),
         ("sw_walk", "sw_walk.cu", None, walk_timing),
         ("pdhmm", "pdhmm.cu", "gkl_tpu/ops/pdhmm_pallas.py:198 and :483", pd_timing),
+        ("pdhmm_f64", "pdhmm.cu", None, f64_timing),
     ]
     band = ("eight threads a lane on an 8-row band wavefront, four lanes a warp; the "
             "renormalisation at the band barrier")
@@ -2460,7 +2552,10 @@ def main(argv) -> int:
              "pdhmm": "a warp per lane on an anti-diagonal wavefront, 2, 4 or 8 read rows a "
                       "thread in passes of 32 strips, the jump state riding down the warp "
                       "with the haplotype byte, the pass boundary in (P, H) planes only past "
-                      "one pass; one kernel for both TPU kernels"}
+                      "one pass; one kernel for both TPU kernels",
+             "pdhmm_f64": "replaces none (the JAX package rescues on the host oracle): the "
+                          "pdhmm body in f64, 2 or 4 read rows a thread, recomputing the lanes "
+                          "below MIN_ACCEPTED with gradual underflow; its launches are 16e's"}
     # no single PyTorch call computes a PairHMM, PDHMM or SW forward
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"gkl_tpu_torch/csrc/{source}",

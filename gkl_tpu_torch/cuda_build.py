@@ -95,19 +95,27 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # out (2 + runs, P) i32: counts, offsets, runs
         vp,                      # cudaStream_t
     ]
-    lib.gkl_pdhmm.argtypes = [
+    # gkl_pdhmm in f32, gkl_pdhmm_f64 in f64: tables, planes and out
+    pdhmm = [
         vp, vp, i32, i32,        # hap_u, happd_u (H, nu_h) u8
         vp, i32, i32,            # readq_u (5, R, nu_r) u8
         vp, vp, vp, vp, i32,     # ridx, hidx, haplen, rslen; P
-        vp, vp,                  # q2e (255,), match-to-match (32640,) f32
-        vp,                      # M, I, D, BM, BI, BD (6, P, H) f32: the boundary
+        vp, vp,                  # q2e (255,), match-to-match (32640,)
+        vp,                      # M, I, D, BM, BI, BD (6, P, H): the boundary
                                  # row between passes (unused in one pass)
-        i32,                     # rows per thread: 2, 4 or 8
-        vp,                      # out (P,) f32
+        i32,                     # rows per thread: 2, 4 or 8 (f64: 2 or 4)
+    ]
+    lib.gkl_pdhmm.argtypes = pdhmm + [
+        vp,                      # out (P,)
+        vp,                      # cudaStream_t
+    ]
+    lib.gkl_pdhmm_f64.argtypes = pdhmm + [
+        i32,                     # warps a lane (its passes in relay), 1 to 32
+        vp,                      # out (P,)
         vp,                      # cudaStream_t
     ]
     for fn in (lib.gkl_pairhmm_scaled, lib.gkl_pairhmm_rows, lib.gkl_pairhmm_cols,
-               lib.gkl_sw_forward, lib.gkl_sw_walk, lib.gkl_pdhmm):
+               lib.gkl_sw_forward, lib.gkl_sw_walk, lib.gkl_pdhmm, lib.gkl_pdhmm_f64):
         fn.restype = i32
 
 

@@ -1,14 +1,16 @@
-"""PDHMM forward in f32: the CUDA kernel's wrapper and its plain twins on an
-indexed batch.
+"""PDHMM forward in f32 and f64: the CUDA kernel's wrappers and their plain
+twins on an indexed batch.
 
 Counterpart of ``gkl_tpu/ops/pdhmm_pallas.py`` (``pdhmm_raw_pallas``,
 ``pdhmm_raw_pallas_chunked`` and their prep) with the lane expansion of
-``api_pdhmm._pdhmm_indexed_jit``.  :func:`pdhmm` takes a deduplicated
-batch: on CUDA tensors it launches ``csrc/pdhmm.cu`` (a warp per lane on an
-anti-diagonal wavefront, in the geometry :func:`pdhmm_geometry` picks) or
-raises; on CPU tensors it runs :func:`pdhmm_indexed_reference`, the lane
-gather and ``ops.pdhmm.pdhmm_raw`` in plain PyTorch.
-:func:`pdhmm_kernel_order` is the same function in the kernel's order of
+``api_pdhmm._pdhmm_indexed_jit``.  :func:`pdhmm` (f32) and
+:func:`pdhmm_f64` (the rescue of the lanes below MIN_ACCEPTED) take a
+deduplicated batch: on CUDA tensors they launch ``csrc/pdhmm.cu`` (a warp
+per lane on an anti-diagonal wavefront, in the geometry
+:func:`pdhmm_geometry` picks) or raise.  On CPU tensors :func:`pdhmm` runs
+:func:`pdhmm_indexed_reference`, the lane gather and
+``ops.pdhmm.pdhmm_raw`` in plain PyTorch, and :func:`pdhmm_f64` runs
+:func:`pdhmm_kernel_order`, the same function in the kernel's order of
 operations, which the kernel equals bit for bit.
 """
 
@@ -23,33 +25,51 @@ from .. import cuda_build, debug, profiling
 from . import pdhmm as pdhmm_ops
 from .pairhmm_cuda import _check, _ftz
 
-# LAUNCHES: launches of the CUDA kernel in this process
-__getattr__ = profiling.launch_counts(__name__, LAUNCHES="pdhmm")
+# LAUNCHES, F64_LAUNCHES: launches of the f32 and f64 instances in this process
+__getattr__ = profiling.launch_counts(__name__, LAUNCHES="pdhmm", F64_LAUNCHES="pdhmm_f64")
 
-# The kernel's instances: read rows each of a lane's 32 threads holds.
+# The kernel's instances: read rows each of a lane's 32 threads holds.  An
+# f64 row takes twice the registers, so the f64 instances stop at 4.
 ROWS_PER_THREAD = (2, 4, 8)
+F64_ROWS_PER_THREAD = (2, 4)
+
+_ITEMSIZE = {"float32": 4, "float64": 8}
+
+# The f64 instances' relay: up to 8 warps a lane, each running every 8th
+# pass, as many as an SM holds at their registers (234 at 4 rows a thread)
+F64_MAX_LANE_WARPS = 8
 
 
-def pdhmm_geometry(R: int) -> tuple[int, int, int]:
-    """The PDHMM kernel's geometry for a read bucket of ``R`` rows:
-    ``(rows_per_thread, pass_rows, passes)``.  A lane's warp covers
-    ``pass_rows = 32 * rows_per_thread`` read rows a pass and runs over the
-    read in at most ``passes`` passes (a lane runs only its own rslen): the
-    smallest instance whose one pass holds the bucket, else 8 rows a
-    thread, 256 a pass."""
+def pdhmm_geometry(R: int, dtype: str = "float32") -> tuple[int, int, int]:
+    """The PDHMM kernel's geometry for a read bucket of ``R`` rows in
+    ``dtype``: ``(rows_per_thread, pass_rows, passes)``.  A lane's warp
+    covers ``pass_rows = 32 * rows_per_thread`` read rows a pass and runs
+    over the read in at most ``passes`` passes (a lane runs only its own
+    rslen): the smallest instance whose one pass holds the bucket, else the
+    largest (8 rows a thread in f32, 4 in f64)."""
     R = int(R)
     if R < 1:
         raise ValueError(f"read bucket must be positive, got {R}")
-    rows = next((k for k in ROWS_PER_THREAD if 32 * k >= R), ROWS_PER_THREAD[-1])
+    instances = F64_ROWS_PER_THREAD if dtype == "float64" else ROWS_PER_THREAD
+    rows = next((k for k in instances if 32 * k >= R), instances[-1])
     return rows, 32 * rows, -(-R // (32 * rows))
 
 
-def boundary_bytes_per_lane(R: int, H: int) -> int:
+def f64_lane_warps(P: int, passes: int, sms: int) -> int:
+    """Warps a lane of the f64 instances takes on a card of ``sms`` SMs, for
+    ``P`` lanes of up to ``passes`` passes: as many as the lane has passes,
+    up to :data:`F64_MAX_LANE_WARPS`, while the lanes' warps fit the SMs
+    (8 an SM), else one a lane.  The rescue's few long lanes take 8 each,
+    so their passes run side by side; many lanes fill the card alone."""
+    return max(1, min(F64_MAX_LANE_WARPS, int(passes), 8 * int(sms) // max(1, int(P))))
+
+
+def boundary_bytes_per_lane(R: int, H: int, dtype: str = "float32") -> int:
     """Device bytes per lane of the kernel's pass boundary for a read bucket
-    of ``R`` rows and a haplotype bucket of ``H`` columns: six f32 planes
-    (24 bytes a column) when the bucket needs more than one pass, else
-    none."""
-    return 24 * int(H) if pdhmm_geometry(R)[2] > 1 else 0
+    of ``R`` rows and a haplotype bucket of ``H`` columns in ``dtype``: six
+    planes (24 bytes a column in f32, 48 in f64) when the bucket needs more
+    than one pass, else none."""
+    return 6 * _ITEMSIZE[dtype] * int(H) if pdhmm_geometry(R, dtype)[2] > 1 else 0
 
 
 def expand_indexed(hap_u, happd_u, readq_u, ridx, hidx):
@@ -71,26 +91,31 @@ def pdhmm_indexed_reference(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen):
     return pdhmm_ops.pdhmm_raw(*planes, haplen, rslen, dtype="float32")
 
 
-def pdhmm_kernel_order(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
+def pdhmm_kernel_order(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen,
+                       dtype: str = "float32") -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the kernel's order of
     operations: what ``csrc/pdhmm.cu`` equals bit for bit.
 
-    Takes the arguments of :func:`pdhmm` and returns the (P,) float32 raw
-    forward probability on the inputs' device.  The sweep runs over the
+    Takes the arguments of :func:`pdhmm` and returns the (P,) raw forward
+    probability in ``dtype`` (the f32 instances' or the f64 ones') on the
+    inputs' device.  The sweep runs over the
     anti-diagonals r + j = d of the read rows r and haplotype columns j,
     every row and lane at once: a cell's left operands are its row's values
     from diagonal d-1, the row above at its column those of the row above
     from diagonal d-1, and the diagonal operands the row above's values
     before that.  Each cell does the kernel's products and sums in its
-    order, subnormals flush after every product and sum (as ``-ftz=true``
-    does), and row rslen's M + I is summed in column order.  Lanes must be
-    well formed.  Nothing on the main path calls it: it is the yardstick
-    the kernel is held to.
+    order, f32 subnormals flush after every product and sum (as
+    ``-ftz=true`` does; f64 keeps them), and row rslen's M + I is summed in
+    column order.  Lanes must be well formed.  It is the yardstick the
+    kernel is held to, and on the CPU the f64 rescue's engine
+    (:func:`pdhmm_f64`): its cells round as the host oracle's do, in the
+    subnormal range too.
     """
     hap, hap_pd, states, read, q, iq, dq, gcp = expand_indexed(
         hap_u, happd_u, readq_u, ridx, hidx)
-    ctx = ctx_mod.pdhmm_context("float32")
-    f = torch.float32
+    ctx = ctx_mod.pdhmm_context(dtype)
+    f = torch.float32 if dtype == "float32" else torch.float64
+    fl = _ftz if f == torch.float32 else (lambda x: x)
     dev = hap.device
     H, P = hap.shape
     R = read.shape[0]
@@ -155,27 +180,28 @@ def pdhmm_kernel_order(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> to
         d_dg = torch.where(after, torch.maximum(dd, dbd), dd)
         m_le = torch.where(after, mx_m, ml)
         d_le = torch.where(after, mx_d, dl)
-        m = _ftz(prior * _ftz(_ftz(_ftz(m_dg * t_mm) + _ftz(i_dg * t_im)) + _ftz(d_dg * t_im)))
-        dn = _ftz(_ftz(m_le * t_md) + _ftz(d_le * t_dd))
+        m = fl(prior * fl(fl(fl(m_dg * t_mm) + fl(i_dg * t_im)) + fl(d_dg * t_im)))
+        dn = fl(fl(m_le * t_md) + fl(d_le * t_dd))
         m_up = torch.where(del_end, torch.maximum(ubm, um), um)
         i_up = torch.where(del_end, torch.maximum(ubi, ui), ui)
-        i = _ftz(_ftz(m_up * t_mi) + _ftz(i_up * t_dd))
+        i = fl(fl(m_up * t_mi) + fl(i_up * t_dd))
 
         prev = [torch.where(live, c, p) for c, p in zip(cur, prev)]
         cur = [torch.where(live, n, c) for n, c in zip((m, i, dn, bm, bi, bd), cur)]
         col = d - last  # the result row's column on this diagonal
-        res = _ftz(m + i).gather(0, last)[0]
-        acc = torch.where(((col >= 0) & (col < hl))[0], _ftz(acc + res), acc)
+        res = fl(m + i).gather(0, last)[0]
+        acc = torch.where(((col >= 0) & (col < hl))[0], fl(acc + res), acc)
     return acc
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(device: torch.device):
-    """The exact f32 PDHMM tables the kernel reads: q2e (255,) and the
-    match-to-match cache (32640,)."""
-    ctx = ctx_mod.pdhmm_context("float32")
-    q2e = torch.as_tensor(ctx.qual_to_error_prob, dtype=torch.float32).to(device)
-    m2m = torch.as_tensor(ctx.match_to_match, dtype=torch.float32).to(device)
+def _device_tables(device: torch.device, dtype: str):
+    """The exact PDHMM tables of ``dtype`` the kernel reads: q2e (255,) and
+    the match-to-match cache (32640,)."""
+    ctx = ctx_mod.pdhmm_context(dtype)
+    f = getattr(torch, dtype)
+    q2e = torch.as_tensor(ctx.qual_to_error_prob, dtype=f).to(device)
+    m2m = torch.as_tensor(ctx.match_to_match, dtype=f).to(device)
     return q2e, m2m
 
 
@@ -195,6 +221,22 @@ def pdhmm(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
     (:func:`boundary_bytes_per_lane`) are allocated only when R needs more
     than one pass.
     """
+    return _forward("float32", hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen)
+
+
+def pdhmm_f64(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
+    """f64 PDHMM forward of an indexed batch: :func:`pdhmm`'s arguments, and
+    the (P,) float64 forward probability before the log, scaled by 2^1020,
+    with gradual underflow, as the host oracle
+    (``native/pdhmm_oracle.cc``) computes it.  The rescue of the lanes whose
+    f32 result falls below MIN_ACCEPTED.  On CUDA the f64 instance comes
+    from :func:`pdhmm_geometry` of R in f64 (4 rows a thread at most, so
+    more passes), its pass boundary 48 bytes a column, and a lane takes
+    :func:`f64_lane_warps` warps, which run its passes side by side."""
+    return _forward("float64", hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen)
+
+
+def _forward(dtype, hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
     device = hap_u.device
     _check("hap_u", hap_u, torch.uint8, 2, device)
     _check("happd_u", happd_u, torch.uint8, 2, device)
@@ -208,27 +250,39 @@ def pdhmm(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen) -> torch.Tensor:
         raise ValueError("happd_u must match hap_u, and readq_u must be (5, R, nu_r)")
     if not hidx.shape[0] == haplen.shape[0] == rslen.shape[0] == P:
         raise ValueError("ridx, hidx, haplen and rslen must have one entry per lane")
+    if device.type == "cpu" and dtype == "float64":
+        # the rescued lanes reach the subnormal range, where only each
+        # cell's own order of products and sums rounds as the kernel and the
+        # oracle do (the scan twin's reordered sums lose the few bits left)
+        return pdhmm_kernel_order(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen, dtype)
     if device.type == "cpu":
         return pdhmm_indexed_reference(hap_u, happd_u, readq_u, ridx, hidx, haplen, rslen)
     if device.type != "cuda":
         raise ValueError(f"no PDHMM kernel for device {device}")
 
     lib = cuda_build.load()
-    q2e, m2m = _device_tables(device)
-    rows_per_thread, _, _ = pdhmm_geometry(R)
-    # six lane-major (P, H) f32 planes, or nothing for a one-pass bucket
-    planes = torch.empty(P * boundary_bytes_per_lane(R, H) // 4, dtype=torch.float32,
-                         device=device)
-    out = torch.empty(P, dtype=torch.float32, device=device)
+    q2e, m2m = _device_tables(device, dtype)
+    rows_per_thread, _, passes = pdhmm_geometry(R, dtype)
+    if dtype == "float64":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        name, lane_warps = "pdhmm_f64", (f64_lane_warps(P, passes, sms),)
+        launcher = lib.gkl_pdhmm_f64
+    else:
+        name, lane_warps, launcher = "pdhmm", (), lib.gkl_pdhmm
+    f = getattr(torch, dtype)
+    # six lane-major (P, H) planes, or nothing for a one-pass bucket
+    planes = torch.empty(P * boundary_bytes_per_lane(R, H, dtype) // _ITEMSIZE[dtype],
+                         dtype=f, device=device)
+    out = torch.empty(P, dtype=f, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the launcher launches on the current card
-        rc = lib.gkl_pdhmm(
+        rc = launcher(
             hap_u.data_ptr(), happd_u.data_ptr(), H, nu_h, readq_u.data_ptr(), R, nu_r,
             ridx.data_ptr(), hidx.data_ptr(), haplen.data_ptr(), rslen.data_ptr(), P,
-            q2e.data_ptr(), m2m.data_ptr(), planes.data_ptr(), rows_per_thread, out.data_ptr(),
-            stream)
+            q2e.data_ptr(), m2m.data_ptr(), planes.data_ptr(), rows_per_thread, *lane_warps,
+            out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"pdhmm kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     debug.after_launch(device)
-    profiling.METRICS.launch("pdhmm")
+    profiling.METRICS.launch(name)
     return out

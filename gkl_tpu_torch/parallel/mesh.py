@@ -419,10 +419,10 @@ def dispatch_pairhmm(mesh: Mesh, pk, kernel) -> Launch:
                         kernel, const_quals=pk.const_quals)
 
 
-def dispatch_pdhmm(mesh: Mesh, pk) -> Launch:
-    """The PDHMM kernel on a ``batch.PackedPDHMMIndexed``, sharded."""
-    return launch_lanes(mesh, pk.ridx.shape[0], _indexed_pdhmm_inputs(pk, mesh.size),
-                        pdhmm_cuda.pdhmm)
+def dispatch_pdhmm(mesh: Mesh, pk, kernel) -> Launch:
+    """``kernel`` (``pdhmm_cuda.pdhmm``, or ``pdhmm_f64`` for the rescue) on
+    a ``batch.PackedPDHMMIndexed``, sharded."""
+    return launch_lanes(mesh, pk.ridx.shape[0], _indexed_pdhmm_inputs(pk, mesh.size), kernel)
 
 
 def _dense_pairhmm(mesh, packed, kernel):

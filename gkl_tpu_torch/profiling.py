@@ -33,17 +33,21 @@ or alignments).  Their stages, each a :func:`span`:
   planes, the lane order, the slices), ``pdhmm_pack`` (a slice's unique
   planes and packing), ``pdhmm_wait`` (upload, kernel and the copy back),
   ``pdhmm_finalize`` (log10, the validity check, the un-permute) with
-  ``pdhmm_rescue`` inside it; and a counter, no span: ``pdhmm_unique``, a
-  slice's unique read planes plus unique haplotype planes packed (its
-  ``pdhmm_pack`` items are the slice's lanes);
+  ``pdhmm_rescue`` inside it (items = lanes below MIN_ACCEPTED; their
+  packing, upload, f64 launch, wait and log); and two counters, no span:
+  ``pdhmm_unique``, a slice's unique read planes plus unique haplotype
+  planes packed (its ``pdhmm_pack`` items are the slice's lanes), and
+  ``pdhmm_card_rescue``, the lanes the kernel's f64 instance recomputed
+  (its plain twin on the CPU), where the double-precision mode and
+  ``KernelLevel.SCALAR`` record nothing;
 * the streaming pipelines: ``pipeline_wait`` and ``pipeline_dispatch`` on
   the caller's thread, ``pipeline_inflate`` and ``pipeline_decode`` on
   the producer's.
 
 Launches are counted whatever the switch, as ``launch.<kernel>`` (calls =
 launches) in :meth:`KernelMetrics.snapshot`: ``pairhmm_scaled``,
-``pairhmm_rows``, ``pairhmm_cols``, ``sw_forward``, ``sw_walk`` and
-``pdhmm``.
+``pairhmm_rows``, ``pairhmm_cols``, ``sw_forward``, ``sw_walk``,
+``pdhmm`` and ``pdhmm_f64``.
 """
 
 from __future__ import annotations

@@ -508,7 +508,7 @@ def _force_pdhmm_rows(monkeypatch, rows):
     from gkl_tpu_torch.ops import pdhmm_cuda
 
     monkeypatch.setattr(pdhmm_cuda, "pdhmm_geometry",
-                        lambda R: (rows, 32 * rows, -(-R // (32 * rows))))
+                        lambda R, dtype="float32": (rows, 32 * rows, -(-R // (32 * rows))))
 
 
 def _pdhmm_lanes(t, rslen=(), haplen=(), events=()):
@@ -522,19 +522,22 @@ def _pdhmm_lanes(t, rslen=(), haplen=(), events=()):
     return t
 
 
-def _pdhmm_kernel_bit_equal(dev, t):
-    """One launch of the PDHMM kernel against the twin in its order on the
-    same card tensors: every lane's f32 result equal bit for bit.  Returns
-    the kernel's result."""
+def _pdhmm_kernel_bit_equal(dev, t, dtype="float32"):
+    """One launch of the PDHMM kernel's ``dtype`` instance against the twin
+    in its order on the same card tensors: every lane's result equal bit
+    for bit.  Returns the kernel's result."""
     from gkl_tpu_torch.ops import pdhmm_cuda
 
     t = {k: v.to(dev) for k, v in t.items()}
-    launches = pdhmm_cuda.LAUNCHES
-    got = pdhmm_cuda.pdhmm(**t)
-    assert pdhmm_cuda.LAUNCHES == launches + 1
-    want = pdhmm_cuda.pdhmm_kernel_order(**t)
-    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
-                                  want.cpu().numpy().view(np.int32))
+    f64 = dtype == "float64"
+    kernel, counter = (pdhmm_cuda.pdhmm_f64, "F64_LAUNCHES") if f64 else (pdhmm_cuda.pdhmm,
+                                                                          "LAUNCHES")
+    launches = getattr(pdhmm_cuda, counter)
+    got = kernel(**t)
+    assert getattr(pdhmm_cuda, counter) == launches + 1
+    want = pdhmm_cuda.pdhmm_kernel_order(**t, dtype=dtype)
+    bits = np.int64 if f64 else np.int32
+    np.testing.assert_array_equal(got.cpu().numpy().view(bits), want.cpu().numpy().view(bits))
     return got
 
 
@@ -560,6 +563,115 @@ def test_pdhmm_kernel_instances_at_pass_edges(cuda_device, monkeypatch, rows):
         _pdhmm_batch(R, 96, 24, seed=rows),
         rslen=[e - 1, e, e + 1, 2 * e - 1, 2 * e, 2 * e + 1, R, R - 1, 1, 1],
         haplen=[96, 96, 95, 64, 65, 33, 96, 32, 96, 1], events=_PDHMM_EDGE_EVENTS))
+
+
+@pytest.mark.parametrize("rows", [2, 4])
+def test_pdhmm_f64_instances_at_pass_edges(cuda_device, monkeypatch, rows):
+    """Every f64 instance (the rescue's) equals the twin in its order in
+    f64 bit for bit, at the f32 test's pass edges, lengths and PD events."""
+    _force_pdhmm_rows(monkeypatch, rows)
+    e = 32 * rows
+    R = 3 * e
+    _pdhmm_kernel_bit_equal(cuda_device, _pdhmm_lanes(
+        _pdhmm_batch(R, 96, 24, seed=rows),
+        rslen=[e - 1, e, e + 1, 2 * e - 1, 2 * e, 2 * e + 1, R, R - 1, 1, 1],
+        haplen=[96, 96, 95, 64, 65, 33, 96, 32, 96, 1], events=_PDHMM_EDGE_EVENTS),
+        dtype="float64")
+
+
+@pytest.mark.parametrize("lane_warps", [1, 2, 3, 8])
+def test_pdhmm_f64_relay_at_every_lane_warps(cuda_device, monkeypatch, lane_warps):
+    """The f64 instance's relay (a lane's passes on ``lane_warps`` warps,
+    each trailing the one before through the boundary row) equals the twin
+    in its order bit for bit: lanes of 1 to 7 passes of 128 rows beside
+    each other, with PD events at the fetch windows' edges and haplotypes
+    ending at them."""
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    monkeypatch.setattr(pdhmm_cuda, "f64_lane_warps", lambda P, passes, sms: lane_warps)
+    t = _pdhmm_lanes(_pdhmm_batch(896, 200, 16, seed=75),
+                     rslen=[896, 895, 769, 768, 640, 129, 128, 1, 300, 500],
+                     haplen=[200, 31, 32, 33, 64, 200, 96, 200, 1, 65],
+                     events=_PDHMM_EDGE_EVENTS)
+    _pdhmm_kernel_bit_equal(cuda_device, t, dtype="float64")
+
+
+def test_pdhmm_f64_keeps_subnormals(cuda_device):
+    """The 1,412 cases of the deepest golden file (every one below
+    MIN_ACCEPTED in f32, some with an f64 raw in the subnormal range)
+    through the picked f64 instance: bit for bit the twin in its order,
+    within 1e-9 in log10 of the host oracle and 1e-4 of the file."""
+    from gkl_tpu_torch.context import pdhmm_context
+    from gkl_tpu_torch.ops import pdhmm_ref
+
+    cases = golden.load_pdhmm_cases("pdhmm_syn_1412_129_223.txt")
+    args = ([c.hap for c in cases], [c.hap_pd for c in cases], [c.read for c in cases],
+            [(c.q, c.iq, c.dq, c.gcp) for c in cases])
+    lanes = np.arange(len(cases))
+    pk = tbatch.pack_pdhmm_indexed(*args, lanes, lanes)
+    names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
+    raw = _pdhmm_kernel_bit_equal(cuda_device, {k: torch.from_numpy(getattr(pk, k))
+                                                for k in names}, dtype="float64")
+    raw = raw.cpu().numpy()[:pk.n_real]
+    assert ((raw > 0) & (raw < np.finfo(np.float64).tiny)).any()
+    got = np.log10(raw) - pdhmm_context("float64").INITIAL_CONDITION_LOG10
+    np.testing.assert_allclose(got, pdhmm_ref.pdhmm_scalar_batch(*args), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got, [c.expected for c in cases], rtol=0, atol=1e-4)
+
+
+def test_pdhmm_f64_malformed_lanes_are_nan(cuda_device):
+    """The f64 instance gives NaN to lanes with an index or a length out of
+    range, and the good lanes beside them equal the twin bit for bit."""
+    from gkl_tpu_torch.ops import pdhmm_cuda
+
+    t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(200, 64, 40, seed=74).items()}
+    bad = torch.tensor([1, 6, 9, 39], device=cuda_device)
+    t["rslen"][1], t["haplen"][6], t["ridx"][9], t["hidx"][39] = 0, 65, 40, -1
+    got = pdhmm_cuda.pdhmm_f64(**t)
+    good = torch.ones(40, dtype=torch.bool, device=cuda_device)
+    good[bad] = False
+    assert torch.isnan(got[bad]).all()
+    want = pdhmm_cuda.pdhmm_kernel_order(**{k: v[good] if k in (
+        "ridx", "hidx", "haplen", "rslen") else v for k, v in t.items()}, dtype="float64")
+    np.testing.assert_array_equal(got[good].cpu().numpy().view(np.int64),
+                                  want.cpu().numpy().view(np.int64))
+
+
+def test_pdhmm_rescue_on_card_is_the_oracle(cuda_device, monkeypatch):
+    """One region of the benchmark's long cell through ``PDHMM()`` on the
+    card: its rescue runs the f64 instance, a launch a rescue and never the
+    host oracle, on exactly the lanes whose f32 result is below
+    MIN_ACCEPTED, counted by ``pdhmm_card_rescue``; each rescued lane
+    within 1e-9 in log10 of the host oracle."""
+    from gkl_tpu_torch import api_pdhmm, profiling
+    from gkl_tpu_torch.context import MIN_ACCEPTED
+    from gkl_tpu_torch.ops import pdhmm_cuda, pdhmm_ref
+
+    raws = []
+    real_run = api_pdhmm.PDHMM._run_indexed
+    monkeypatch.setattr(api_pdhmm.PDHMM, "_run_indexed",
+                        lambda self, *a: raws.append(real_run(self, *a)) or raws[-1])
+    oracle = []
+    real_oracle = pdhmm_ref.pdhmm_scalar_batch
+    monkeypatch.setattr(pdhmm_ref, "pdhmm_scalar_batch",
+                        lambda *a, **kw: oracle.append(1) or real_oracle(*a, **kw))
+    monkeypatch.setenv("GKL_TPU_METRICS", "1")
+    profiling.METRICS.reset()
+    launches = pdhmm_cuda.F64_LAUNCHES
+    out, rescues = chip_smoke.long_cell_rescue()
+    launches = pdhmm_cuda.F64_LAUNCHES - launches
+    snap = profiling.METRICS.snapshot()
+    profiling.METRICS.reset()
+    assert oracle == [] and launches == len(rescues) > 0
+    below = [int(np.sum(r < MIN_ACCEPTED)) for r in raws]
+    assert [len(r) for r, _, _ in rescues] == [b for b in below if b]
+    n = sum(below)
+    assert snap["pdhmm_card_rescue"]["items"] == snap["pdhmm_rescue"]["items"] == n
+    for ridx, hidx, planes in rescues:
+        exact = real_oracle(*planes.pairs(ridx, hidx))
+        got = api_pdhmm.PDHMM(device=cuda_device)._rescue(ridx, hidx, planes)
+        np.testing.assert_allclose(got, exact, rtol=0, atol=1e-9)
+    assert np.isfinite(out).all()
 
 
 def test_pdhmm_kernel_events_at_fetch_edges(cuda_device):
@@ -682,10 +794,10 @@ def test_pdhmm_pallas_level_runs_on_card(cuda_device):
 
 
 @pytest.mark.parametrize("kernel", ["sw_forward", "sw_walk", "pdhmm", "pairhmm_rows",
-                                    "pairhmm_cols"])
+                                    "pairhmm_cols", "pdhmm_f64"])
 def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kernel):
-    """With no kernel to build, the SW, PDHMM, rows and cols wrappers raise
-    on CUDA tensors and never fall back to their twins."""
+    """With no kernel to build, the SW, PDHMM (f32 and f64), rows and cols
+    wrappers raise on CUDA tensors and never fall back to their twins."""
     from gkl_tpu_torch.ops import pairhmm_cols, pdhmm_cuda, sw_cuda
 
     def no_kernel():
@@ -700,10 +812,10 @@ def test_new_wrappers_refuse_cuda_without_kernel(cuda_device, monkeypatch, kerne
         args = [torch.from_numpy(a).to(cuda_device) for a in walk_cases.walk_case("random")]
         with pytest.raises(native_lib.BuildError):
             sw_cuda.sw_walk(*args, 9)
-    elif kernel == "pdhmm":
+    elif kernel in ("pdhmm", "pdhmm_f64"):
         t = {k: v.to(cuda_device) for k, v in _pdhmm_batch(8, 8, 8, seed=0).items()}
         with pytest.raises(native_lib.BuildError):
-            pdhmm_cuda.pdhmm(**t)
+            getattr(pdhmm_cuda, kernel)(**t)
     elif kernel == "pairhmm_rows":
         with pytest.raises(native_lib.BuildError):
             pairhmm_cuda.pairhmm_rows(**chip_smoke.indexed_args(_dense_batch(8, 16, 8, seed=0)))

@@ -163,7 +163,7 @@ def test_one_entry_dispatch_passes_the_planes_whole(monkeypatch, kernel):
     assert one.devices == (torch.device("cpu"),) and tmesh.engine_mesh(None, "cpu") is one
     if kernel == "pdhmm":
         pk = _pdhmm_indexed(np.random.default_rng(4))
-        got = tmesh.dispatch_pdhmm(one, pk).wait()
+        got = tmesh.dispatch_pdhmm(one, pk, pdhmm_cuda.pdhmm).wait()
         names = ("hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")
         want = pdhmm_cuda.pdhmm(**{k: torch.from_numpy(getattr(pk, k)) for k in names})
     else:

@@ -283,7 +283,8 @@ def test_pdhmm_mesh_slices_count_each_device(monkeypatch):
     # ~19 lanes a MiB: 16-lane slices of the 32 lanes on one device
     from gkl_tpu_torch.ops import pdhmm_cuda
 
-    monkeypatch.setattr(pdhmm_cuda, "boundary_bytes_per_lane", lambda R, H: (1 << 20) // 20)
+    monkeypatch.setattr(pdhmm_cuda, "boundary_bytes_per_lane",
+                        lambda R, H, dtype="float32": (1 << 20) // 20)
     args = PDHMMNativeArguments(max_memory_in_mb=1)
     sizes = {}
     for key, mesh in (("one", None), ("two_on_one", _cpu_mesh(2))):

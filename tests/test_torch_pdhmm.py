@@ -280,14 +280,23 @@ def test_memory_slices_one_pass_reads_need_no_boundary(monkeypatch):
     assert all(pdhmm_cuda.boundary_bytes_per_lane(R, H) == 0 for H, R, _ in shapes), shapes
 
 
+def _spy_rescue(monkeypatch, seen):
+    """Record the lanes of each ``PDHMM._rescue`` call, the f64 engine's."""
+    real = tapi.PDHMM._rescue
+    monkeypatch.setattr(tapi.PDHMM, "_rescue",
+                        lambda self, ridx, *a: seen.append(len(ridx)) or real(self, ridx, *a))
+
+
 def test_rescue_is_every_lane_below_min_accepted(monkeypatch):
     """Exactly the lanes whose f32 result is below MIN_ACCEPTED go to the
-    oracle, and their results are the oracle's."""
+    f64 engine (the kernel's f64 twin here, never the host oracle), and
+    their results are the oracle's."""
     haps, pds, reads = _objects(6)
-    seen = []
+    seen, oracle = [], []
+    _spy_rescue(monkeypatch, seen)
     real = pdhmm_ref.pdhmm_scalar_batch
     monkeypatch.setattr(pdhmm_ref, "pdhmm_scalar_batch",
-                        lambda *a, **kw: seen.append(len(a[0])) or real(*a, **kw))
+                        lambda *a, **kw: oracle.append(len(a[0])) or real(*a, **kw))
     hmm = tapi.PDHMM(device="cpu")
     rd = [ReadData(*r) for r in reads]
     hd = [tapi.PDHaplotypeData(h, haplotype_pdbases=p) for h, p in zip(haps, pds)]
@@ -297,7 +306,7 @@ def test_rescue_is_every_lane_below_min_accepted(monkeypatch):
                         lambda self, *a: raw.append(real_run(self, *a)) or raw[-1])
     got = hmm.compute_likelihoods(rd, hd)
     below = int(np.sum(raw[0] < MIN_ACCEPTED))
-    assert 0 < below < len(got) and seen == [below]
+    assert 0 < below < len(got) and seen == [below] and oracle == []
     pairs = [(h, p, r[0], r[1:]) for r in reads for h, p in zip(haps, pds)]
     exact = real(*zip(*pairs))
     # a lane half a decade under the f32 bound is below it in f32 too
@@ -310,8 +319,8 @@ def test_rescue_is_every_lane_below_min_accepted(monkeypatch):
 
 def test_nan_lane_raises_and_is_not_rescued(monkeypatch):
     """A NaN from the f32 engine (the kernel's mark of a malformed lane) is
-    not taken for a lane below MIN_ACCEPTED: the oracle recomputes only the
-    lanes really below it, and the NaN reaches the validity check, which
+    not taken for a lane below MIN_ACCEPTED: the f64 engine recomputes only
+    the lanes really below it, and the NaN reaches the validity check, which
     raises."""
     haps, pds, reads = _objects(6)
     raw = []
@@ -325,9 +334,7 @@ def test_nan_lane_raises_and_is_not_rescued(monkeypatch):
 
     monkeypatch.setattr(tapi.PDHMM, "_run_indexed", nan_lane)
     seen = []
-    real = pdhmm_ref.pdhmm_scalar_batch
-    monkeypatch.setattr(pdhmm_ref, "pdhmm_scalar_batch",
-                        lambda *a, **kw: seen.append(len(a[0])) or real(*a, **kw))
+    _spy_rescue(monkeypatch, seen)
     with pytest.raises(RuntimeError, match="invalid log10"):
         tapi.PDHMM(device="cpu").compute_likelihoods(
             [ReadData(*r) for r in reads],

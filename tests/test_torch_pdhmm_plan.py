@@ -169,7 +169,8 @@ def _spy(monkeypatch):
 
 def _small_slices(monkeypatch):
     """About 19 lanes a MiB: under ``max_memory_in_mb=1``, 16-lane slices."""
-    monkeypatch.setattr(pdhmm_cuda, "boundary_bytes_per_lane", lambda R, H: (1 << 20) // 20)
+    monkeypatch.setattr(pdhmm_cuda, "boundary_bytes_per_lane",
+                        lambda R, H, dtype="float32": (1 << 20) // 20)
     return PDHMMNativeArguments(max_memory_in_mb=1)
 
 
@@ -269,15 +270,24 @@ def test_unique_planes_counter(monkeypatch, metrics):
 
 
 def test_rescue_gathers_only_its_lanes(monkeypatch):
-    """The f64 rescue takes per-pair lists of the lanes below MIN_ACCEPTED
-    alone, gathered from the unique planes, and its results are theirs."""
+    """The f64 rescue takes the lanes below MIN_ACCEPTED alone, a launch a
+    slice, their planes packed from the call's unique planes, and its
+    results are theirs: bit for bit the f64 engine on the pairs packed one
+    by one, within 1e-9 of the host oracle."""
     reads, haps = _objects()
     monkeypatch.setattr(api_pdhmm, "MIN_ACCEPTED", np.inf)
     calls = []
-    real = api_pdhmm.pdhmm_ref.pdhmm_scalar_batch
-    monkeypatch.setattr(api_pdhmm.pdhmm_ref, "pdhmm_scalar_batch",
-                        lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    real = pdhmm_cuda.pdhmm_f64
+    monkeypatch.setattr(pdhmm_cuda, "pdhmm_f64",
+                        lambda **t: calls.append(int(t["ridx"].shape[0])) or real(**t))
     got = PDHMM(_small_slices(monkeypatch), device="cpu").compute_likelihoods(reads, haps)
     h, pd, r, q = _pairs(reads, haps)
-    assert [len(a[0]) for a in calls] == [16, 16, 16, 2]
-    np.testing.assert_array_equal(got, real(h, pd, r, q))
+    assert calls == [16, 16, 16, 8]  # 2 lanes, padded to the lane multiple
+    lanes = np.arange(len(h))
+    pk = tbatch.pack_pdhmm_indexed(h, pd, r, q, lanes, lanes, lane_multiple=1)
+    raw = real(**{k: torch.from_numpy(getattr(pk, k)) for k in (
+        "hap_u", "happd_u", "readq_u", "ridx", "hidx", "haplen", "rslen")}).numpy()
+    want = np.log10(raw) - api_pdhmm.pdhmm_context("float64").INITIAL_CONDITION_LOG10
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, api_pdhmm.pdhmm_ref.pdhmm_scalar_batch(h, pd, r, q),
+                               rtol=0, atol=1e-9)

@@ -240,8 +240,9 @@ def test_pdhmm_stages(monkeypatch):
     """The object path: the cross product and the lane order are two
     plans, one slice packed and waited for, its finalize with the rescue
     inside it, and the un-permute; ``pdhmm`` and ``pdhmm_rescue`` keep
-    their items; ``pdhmm_unique`` counts the slice's unique read and
-    haplotype planes."""
+    their items, and ``pdhmm_card_rescue`` counts the rescue's lanes;
+    ``pdhmm_unique`` counts the slice's unique read and haplotype
+    planes."""
     monkeypatch.setenv("GKL_TPU_METRICS", "1")
     _force_rescue(monkeypatch, api_pdhmm)
     reads, haps = _reads_and_haps()
@@ -253,7 +254,7 @@ def test_pdhmm_stages(monkeypatch):
     n = len(reads) * len(haps)
     assert _counts(snap) == {
         "pdhmm": (1, n), "pdhmm_plan": (2, 2 * n), "pdhmm_pack": (1, n), "pdhmm_wait": (1, n),
-        "pdhmm_finalize": (2, n), "pdhmm_rescue": (1, n),
+        "pdhmm_finalize": (2, n), "pdhmm_rescue": (1, n), "pdhmm_card_rescue": (1, n),
         "pdhmm_unique": (1, len(reads) + len(haps))}
     assert snap["pdhmm"]["cells"] == (sum(len(r.read_bases) for r in reads)
                                       * sum(len(h.haplotype_bases) for h in haps))
@@ -391,7 +392,8 @@ MODULE_COUNTERS = [(pairhmm_cuda, "LAUNCHES", "pairhmm_scaled"),
                    (pairhmm_cuda, "ROWS_LAUNCHES", "pairhmm_rows"),
                    (pairhmm_cols, "LAUNCHES", "pairhmm_cols"),
                    (sw_cuda, "LAUNCHES", "sw_forward"),
-                   (pdhmm_cuda, "LAUNCHES", "pdhmm")]
+                   (pdhmm_cuda, "LAUNCHES", "pdhmm"),
+                   (pdhmm_cuda, "F64_LAUNCHES", "pdhmm_f64")]
 
 
 @pytest.mark.parametrize("module,attr,kernel", MODULE_COUNTERS)
@@ -415,7 +417,7 @@ def test_module_launch_names_read_the_one_count(module, attr, kernel):
 def test_cpu_calls_count_no_launch(monkeypatch):
     for call in ("pairhmm", "sw", "pdhmm"):
         CALLS[call](monkeypatch)
-    assert [getattr(m, a) for m, a, _ in MODULE_COUNTERS] == [0] * 5
+    assert [getattr(m, a) for m, a, _ in MODULE_COUNTERS] == [0] * len(MODULE_COUNTERS)
     assert not [k for k in profiling.METRICS.snapshot() if k.startswith("launch.")]
 
 

@@ -173,7 +173,8 @@ def kernel_lanes_differ(device) -> dict:
     """Every CUDA kernel on every draw against its kernel-order twin on the
     same card tensors: ``{"kernel/case": lanes whose output differs in any
     bit}`` (SW: in-range cells that differ).  The scaled kernel runs on the
-    draws whose read bucket is a multiple of 8; the twins run on the card."""
+    draws whose read bucket is a multiple of 8; the PDHMM draws run through
+    the f32 and the f64 instances; the twins run on the card."""
     from gkl_tpu_torch.ops import pairhmm_cols, pairhmm_cuda, pdhmm_cuda, sw_cuda
     from gkl_tpu_torch.ops import sw as sw_ops
 
@@ -206,6 +207,9 @@ def kernel_lanes_differ(device) -> dict:
                  hidx=lanes, haplen=haplen, rslen=rslen)
         k = pdhmm_cuda.pdhmm(**t)
         out[f"pdhmm/{name}"] = int((bits(k) != bits(pdhmm_cuda.pdhmm_kernel_order(**t))).sum())
+        k = pdhmm_cuda.pdhmm_f64(**t)
+        twin = pdhmm_cuda.pdhmm_kernel_order(**t, dtype="float64")
+        out[f"pdhmm_f64/{name}"] = int((k.view(torch.int64) != twin.view(torch.int64)).sum())
     for name, arrays, ib in sw_cases():
         ref, alt, reflen, altlen = _on(arrays, device)
         k = sw_cuda.sw_forward(ref, alt, reflen, altlen, *SW_SCORES, indel_boundary=ib)
