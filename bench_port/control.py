@@ -7,9 +7,11 @@ For each ``--seeds`` seed: the cell's pool, then the port driven through a
 short window at the cell's own load (at least every region the check
 compares), and the check's numbers: the program's readings.  For each
 ``--control-seeds`` seed: the check's numbers with the plain reference,
-a precision below the configuration's (bfloat16 likelihoods with the
-program's float64 rescue of the lanes below ``rescue_below``, int16 SW
-scores), in the program's place: the control's readings.  One JSON line
+a precision below the configuration's (``check.control_calls``: float32
+likelihoods where the configuration sets
+``native_pair_hmm_use_double_precision``, else bfloat16, each with the
+float64 rescue of the lanes below ``rescue_below``; int16 SW scores), in
+the program's place: the control's readings.  One JSON line
 each, with ``correct`` as a run would judge those numbers, then the
 largest program reading and the smallest control reading of every number.
 """

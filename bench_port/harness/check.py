@@ -27,7 +27,7 @@ from bench_port.reference import pairhmm as ref_pairhmm
 from bench_port.reference import pdhmm as ref_pdhmm
 from bench_port.reference import sw as ref_sw
 
-from . import drive
+from . import drive, spec
 
 STRATEGIES = {"SOFTCLIP": ref_sw.SOFTCLIP, "INDEL": ref_sw.INDEL,
               "LEADING_INDEL": ref_sw.LEADING_INDEL, "IGNORE": ref_sw.IGNORE}
@@ -169,10 +169,13 @@ def program_calls(done: list, plan: dict, pool: list) -> list:
 
 def control_calls(pool: list, plan: dict, config: dict, *, device="cpu") -> list:
     """The reference in the program's place, a precision below the one the
-    configuration states: bfloat16 likelihoods (float32 stated), the lanes
-    below the configuration's ``rescue_below`` recomputed in float64 as the
-    program's are, and int16 SW scores (int32 stated)."""
-    low = likelihoods(pool, plan, config, dtype=torch.bfloat16, device=device,
+    configuration states: float32 likelihoods where it states float64
+    (``native_pair_hmm_use_double_precision``: GATK's default float-first
+    mode), else bfloat16 (float32 stated); in both the lanes below the
+    configuration's ``rescue_below`` recomputed in float64, as the
+    float-first program's are; and int16 SW scores (int32 stated)."""
+    dtype = torch.float32 if spec.double_precision(config) else torch.bfloat16
+    low = likelihoods(pool, plan, config, dtype=dtype, device=device,
                       rescue_below=config["rescue_below"])
     best = {g: np.argmax(low[g][0], axis=1) for g in plan}
     sw = alignments(pool, [(g, int(plan[g][a]), int(b)) for g in plan

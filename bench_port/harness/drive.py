@@ -59,14 +59,17 @@ def _lengths(reads):
 
 class PairHMMCalls:
     """``PairHMM`` behind spans: the synchronous call, and the asynchronous
-    one whose dispatch and ``result()`` are each a span (``region_stream``)."""
+    one whose dispatch and ``result()`` are each a span (``region_stream``).
+    ``double``: the deployment runs it in float64, so its least time is
+    read at the FP64 peak."""
 
-    def __init__(self, hmm, spans: Spans):
-        self.hmm, self.spans = hmm, spans
+    def __init__(self, hmm, spans: Spans, double: bool = False):
+        self.hmm, self.spans, self.double = hmm, spans, double
 
     def _least(self, s, reads, haps):
         if self.spans.annotate:
-            s.least_s = roofline.pairhmm_s(_lengths(reads), [len(h.haplotype_bases) for h in haps])
+            s.least_s = roofline.pairhmm_s(_lengths(reads), [len(h.haplotype_bases) for h in haps],
+                                           double=self.double)
 
     def compute_likelihoods(self, reads, haps):
         with self.spans.span("pairhmm", len(reads)) as s:
@@ -104,15 +107,18 @@ class SWCalls:
 
 
 class PDHMMCalls:
-    def __init__(self, pdhmm, spans: Spans):
-        self.pdhmm, self.spans = pdhmm, spans
+    """``PDHMM`` behind a span; ``double`` as in ``PairHMMCalls``."""
+
+    def __init__(self, pdhmm, spans: Spans, double: bool = False):
+        self.pdhmm, self.spans, self.double = pdhmm, spans, double
 
     def compute_likelihoods(self, reads, pd_haps):
         with self.spans.span("pdhmm", len(reads)) as s:
             out = self.pdhmm.compute_likelihoods(reads, pd_haps)
             if self.spans.annotate:
                 s.least_s = roofline.pdhmm_s(_lengths(reads),
-                                             [len(h.haplotype_bases) for h in pd_haps])
+                                             [len(h.haplotype_bases) for h in pd_haps],
+                                             double=self.double)
         return out
 
 

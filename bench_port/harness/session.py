@@ -12,7 +12,7 @@ import torch
 
 from bench_port.reference import bam as ref_bam
 
-from . import check, drive, trace
+from . import check, drive, spec, trace
 from .spec import Cell
 
 # the port's host libraries, built (on a checkout's first run) or loaded
@@ -47,16 +47,25 @@ def pin_threads(config: dict) -> None:
 
 
 def engines(device, config: dict):
-    from gkl_tpu_torch import PDHMM, PairHMM, PDHMMNativeArguments, SmithWaterman
+    """PairHMM, SmithWaterman and PDHMM as the deployment sets them up; with
+    ``native_pair_hmm_use_double_precision`` PairHMM and PDHMM run in
+    float64 (GKL's PDHMM computes in double only)."""
+    from gkl_tpu_torch import (PDHMM, PairHMM, PairHMMNativeArguments, PDHMMNativeArguments,
+                               SmithWaterman)
 
-    args = PDHMMNativeArguments(max_number_of_threads=config["native_threads"])
-    return PairHMM(device=device), SmithWaterman(device=device), PDHMM(args, device=device)
+    double = spec.double_precision(config)
+    hmm_args = PairHMMNativeArguments(use_double_precision=double)
+    args = PDHMMNativeArguments(max_number_of_threads=config["native_threads"],
+                                use_double_precision=double)
+    return (PairHMM(hmm_args, device=device), SmithWaterman(device=device),
+            PDHMM(args, device=device))
 
 
 class Session:
     def __init__(self, cell: Cell, seed: int, device, port_engines=None):
         self.cell, self.seed, self.device = cell, seed, torch.device(device)
         self.config, self.mix = cell.config, cell.mix
+        self.double = spec.double_precision(self.config)
         self.pool = cell.generator().pool(self.config, self.mix, seed)
         self.regions = [drive.port_region(raw, self.config) for raw in self.pool]
         self.reads_of = [r.n_reads for r in self.regions]
@@ -84,8 +93,8 @@ class Session:
 
     def call(self, g: int) -> drive.Output:
         hmm, sw, pdhmm = self.engines
-        spanned = (drive.PairHMMCalls(hmm, self.spans), drive.SWCalls(sw, self.spans),
-                   drive.PDHMMCalls(pdhmm, self.spans))
+        spanned = (drive.PairHMMCalls(hmm, self.spans, self.double),
+                   drive.SWCalls(sw, self.spans), drive.PDHMMCalls(pdhmm, self.spans, self.double))
         return self.entry(spanned, self.regions[g], self.config, self.mix)
 
     def warm_up(self) -> None:

@@ -1,6 +1,12 @@
 """A cell and everything it names, found by name under ``bench_port/``:
 
-* ``configs/<config>.json`` — the deployment's settings;
+* ``configs/<config>.json`` — the deployment's settings: GATK's arguments
+  under names of their own (``arguments`` says which), among them
+  ``native_pair_hmm_use_double_precision`` (bool, absent means false),
+  GATK's ``--native-pair-hmm-use-double-precision``: the engines run
+  PairHMM and PDHMM in float64 throughout, the control drops to float32
+  with the float64 rescue, and the PairHMM and PDHMM rooflines read the
+  card's FP64 peak;
 * ``traffic/<mix>.json`` — the traffic mix, naming its generator;
 * ``gen/<generator>.py`` — ``pool(config, mix, seed)``;
 * ``limits/<cell>.json`` — the limit of each number the check compares;
@@ -26,6 +32,15 @@ def _json(*parts) -> dict:
 
 def benchmark() -> dict:
     return _json(REPO_DIR, "BENCHMARK.json")
+
+
+def double_precision(config: dict) -> bool:
+    """Whether the deployment sets GATK's
+    ``--native-pair-hmm-use-double-precision``."""
+    value = config.get("native_pair_hmm_use_double_precision", False)
+    if not isinstance(value, bool):
+        raise ValueError(f"native_pair_hmm_use_double_precision is {value!r}, not a bool")
+    return value
 
 
 def _applies(metric: dict, cell: str) -> bool:
